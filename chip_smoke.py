@@ -1,0 +1,512 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port of DPA-Store on one CUDA card and check it.
+
+    python3 chip_smoke.py            # 50M sparse keys, 65536-request waves
+
+Phases, one JSON line each (any mismatch raises and exits non-zero):
+
+1. device   — the card's name and power limit (also printed as
+               ``nvidia-smi`` gives them), torch and CUDA versions, and the
+               seconds spent building the CUDA kernels from ``src/repro_torch/csrc``.
+2. kernels  — on the main-path store's state after some buffered writes and
+               cache admits, each kernel (GET, cache probe P=2 and P=1, range
+               walk) against its plain-torch version on the same CUDA tensors:
+               bitwise equality and CUDA-event times (median of 25 launches).
+3. main     — the single-store main path at a deployment's size: 50M sparse
+               keys (the service config's and the paper's Table-1 scale),
+               default tree/cache configs, YCSB-B waves (95% GET at zipf 0.99,
+               5% UPDATE), a DELETE wave, RANGE waves (limit 10, a repeat for
+               anchor-cache hits, limit 100 at one leaf per round), flush.
+               Every GET and RANGE answer is checked against a numpy oracle,
+               and every kernel's launch counter must advance.
+4. parity   — the same seeded op stream on a 200k-key store on the card and
+               on the CPU: responses and final state tensors identical.
+
+Then the kernels' summary line and, last, ``{"ok": true, "device": ...}``.
+Exits non-zero without printing a result when CUDA is absent or when the
+repository's ``src/repro_torch`` is not beside this script.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+N_KEYS = 50_000_000  # dpastore_service.py:11 and the paper's Table-1 scale
+WAVE = 65536  # requests per wave (dpastore_service.py:12)
+ROUNDS = 6  # YCSB-B rounds: one GET wave + one UPDATE wave each
+PARITY_KEYS = 200_000
+SEED = 0
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
+INT_OPS_PER_S = 67e12  # H100 SXM non-tensor-core 32-bit rate (data sheet, f32)
+ZIPF = 0.99
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def _setup():
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: no CUDA device; this script measures the card only")
+    src = Path(__file__).resolve().parent / "src"
+    if not (src / "repro_torch" / "csrc").is_dir():
+        sys.exit("chip_smoke: src/repro_torch not found beside this script")
+    sys.path.insert(0, str(src))
+    return torch
+
+
+def time_ms(torch, fn, reps: int = 25, warm: int = 3) -> float:
+    """Median device time of one call (CUDA events), after warm-up.  Each
+    call is queued behind a ~20 ms device sleep, so the host has enqueued
+    every launch of the call before the first event fires: the time is the
+    device's, not the host's launch overhead."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(40_000_000)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+# ---------------------------------------------------------------- oracle
+
+
+class Oracle:
+    """Sorted keys and values with the acknowledged writes applied."""
+
+    def __init__(self, keys, vals):
+        self.keys = keys
+        self.vals = vals.copy()
+        self.alive = np.ones(keys.size, dtype=bool)
+
+    def pos(self, ks):
+        p = np.searchsorted(self.keys, ks)
+        assert (self.keys[p] == ks).all(), "oracle tracks updates of existing keys only"
+        return p
+
+    def put(self, ks, vs):
+        p = self.pos(ks)
+        self.vals[p] = vs  # duplicates: the last write wins, as in the store
+        self.alive[p] = True
+
+    def delete(self, ks):
+        self.alive[self.pos(ks)] = False
+
+    def check_get(self, ks, vals, found):
+        p = np.minimum(np.searchsorted(self.keys, ks), self.keys.size - 1)
+        exp_f = (self.keys[p] == ks) & self.alive[p]
+        exp_v = np.where(exp_f, self.vals[p], 0)
+        assert (found == exp_f).all(), f"GET found: {int((found != exp_f).sum())} rows differ"
+        assert (vals == exp_v).all(), f"GET vals: {int((vals != exp_v).sum())} rows differ"
+
+    def check_range(self, starts, limit, res):
+        idx = np.flatnonzero(self.alive)
+        ak, av = self.keys[idx], self.vals[idx]
+        j = np.searchsorted(ak, starts)
+        cols = j[:, None] + np.arange(limit)[None, :]
+        ok = cols < ak.size
+        cols = np.minimum(cols, ak.size - 1)
+        assert (res.counts == ok.sum(axis=1)).all(), "RANGE counts differ"
+        assert (res.keys == np.where(ok, ak[cols], 0)).all(), "RANGE keys differ"
+        assert (res.vals == np.where(ok, av[cols], 0)).all(), "RANGE vals differ"
+
+
+# ------------------------------------------------------- bytes and bounds
+
+
+def bound(nbytes: float, nops: float):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / INT_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _uniq(torch, x) -> int:
+    return int(torch.unique(x).numel())
+
+
+def _window_bytes(torch, slot, lo, count, w) -> int:
+    """Distinct 8-byte keys the requests' search windows touch."""
+    pos = lo[:, None] + torch.arange(w, device=lo.device)[None, :]
+    return 8 * _uniq(torch, (slot[:, None] * 128 + pos)[pos < count[:, None]])
+
+
+def get_bytes_ops(torch, lookup, keys_mod, st, khi, klo):
+    """Distinct bytes GET reads and writes on this data, each once (see
+    csrc/traverse.cu for the per-request list), and its compares.  Lanes
+    that share a node, window or insert buffer share its bytes."""
+    t, ib, cfg = st.tree, st.ib, st.cfg
+    kh, kl = keys_mod.u32(khi), keys_mod.u32(klo)
+    B = khi.shape[0]
+    w_in, w_lf = 2 * cfg.eps_inner + 2, 2 * cfg.eps_leaf + 2
+    nbytes = B * (8 + 9) + 4  # request keys in, value + flag out, root id
+    node = t.root.long().expand(B)
+    for _ in range(st.depth - 1):  # the descent of lookup._route, instrumented
+        sf = keys_mod.u32(t.node_seg_first[node])
+        seg = keys_mod.limb_le(sf[:, 1:, 0], sf[:, 1:, 1], kh[:, None], kl[:, None]).sum(1)
+        bidx = torch.arange(B, device=node.device)
+        pred = lookup._predict(t.node_seg_slope[node, seg], sf[bidx, seg, 0], sf[bidx, seg, 1], kh, kl)
+        count = t.node_seg_count[node, seg].long()
+        slot = t.node_seg_slot[node, seg].long()
+        rank, lo = lookup._window_rank(t.pivot_keys, slot, count, pred, cfg.eps_inner, kh, kl)
+        rank = torch.clamp(rank, min=0)
+        nbytes += 56 * _uniq(torch, node) + 12 * _uniq(torch, node * 7 + seg)
+        nbytes += _window_bytes(torch, slot, lo, count, w_in) + 4 * _uniq(torch, slot * 128 + rank)
+        node = t.pivot_child[slot, rank].long()
+    leaf = node
+    slot, count = t.leaf_slot[leaf].long(), t.leaf_count[leaf].long()
+    anchor = keys_mod.u32(t.leaf_anchor[leaf])
+    pred = lookup._predict(t.leaf_slope[leaf], anchor[:, 0], anchor[:, 1], kh, kl)
+    rank, lo = lookup._window_rank(t.hbm_keys, slot, count, pred, cfg.eps_leaf, kh, kl)
+    present, deleted = lookup.ib_search(ib, leaf, khi, klo)[:2]
+    ul = torch.unique(leaf)
+    nbytes += 20 * ul.numel() + _window_bytes(torch, slot, lo, count, w_lf)
+    nbytes += 4 * ul.numel() + 12 * int(ib.count[ul].sum())  # buffer count, ops, keys
+    tree_val = (rank >= 0) & ~present & ~deleted
+    nbytes += 8 * _uniq(torch, (slot * 128 + rank)[tree_val]) + 8 * _uniq(torch, (kh * 2**32 + kl)[present])
+    nops = B * ((6 + w_in) * (st.depth - 1) + w_lf + 24) + 3 * int(ib.count[leaf].sum())
+    return nbytes, nops
+
+
+def probe_bytes_ops(torch, cacheset, keys_mod, cache, tid, khi, klo, cfg, salts, bucket_salt, P):
+    """Distinct bytes the probe reads and writes: the requests and their
+    outputs, the Bloom words they test, and — for Bloom-positive requests
+    only — their buckets' keys and flags (hit payloads are not counted, so
+    this bound is slightly low)."""
+    kh, kl = keys_mod.u32(khi), keys_mod.u32(klo)
+    t = tid.long()
+    B = khi.shape[0]
+    may = cacheset.bloom_may(cache.bloom, t, kh, kl, cfg.bloom_bits, salts)
+    n_words = cache.bloom.shape[1]
+    words = torch.cat([t * n_words + h // 32 for h in cacheset.bloom_hashes(kh, kl, cfg.bloom_bits, salts)])
+    bucket = t * cfg.n_buckets + cacheset.bucket_of(kh, kl, cfg.n_buckets, bucket_salt)
+    nbytes = B * (12 + 1 + 4 * P) + 4 * _uniq(torch, words) + cfg.ways * 9 * _uniq(torch, bucket[may])
+    nops = B * 4 * 20 + int(may.sum()) * cfg.ways * 4
+    return nbytes, nops
+
+
+def walk_bytes_ops(torch, tree, visited, L, max_leaves):
+    """Distinct bytes the walk reads and writes: each visited leaf's next,
+    count and slot and its live keys and values once, the requests, and
+    the outputs."""
+    B = visited.shape[0]
+    live = torch.unique(visited[visited >= 0].long())
+    counts = int(tree.leaf_count[live].long().sum())
+    nbytes = B * 12 + 12 * live.numel() + 16 * counts + B * (16 * L + 8 + 4 * max_leaves)
+    nops = 6 * int(tree.leaf_count[visited[visited >= 0].long()].long().sum()) + B * max_leaves * 16
+    return nbytes, nops
+
+
+# ------------------------------------------------------------------ main
+
+
+def main() -> int:
+    torch = _setup()
+
+    from repro_torch.core import DPAStore, cacheset, datasets, hotcache, lookup, scancache
+    from repro_torch.core import keys as keys_mod
+    from repro_torch.core import carry
+    from repro_torch.kernels import build, cache_probe, range_scan, traverse
+
+    dev = torch.device("cuda")
+    t_start = time.perf_counter()
+
+    # ---- 1. device ---------------------------------------------------------
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    build_s = build.build_all()
+    for name in build.SOURCES:
+        build.lib(name)
+    emit({
+        "phase": "device", "nvidia_smi": smi, "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(), "torch": torch.__version__,
+        "cuda": torch.version.cuda, "numpy": np.__version__, "kernel_build_s": build_s,
+    })
+
+    # ---- the main-path store -----------------------------------------------
+    rng = np.random.default_rng(SEED)
+    W = WAVE
+    n_upd = max(1, round(W * 5 / 95))
+    t0 = time.perf_counter()
+    keys = datasets.sparse(N_KEYS, seed=SEED)
+    vals = keys ^ np.uint64(0x5DEECE66D)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    st = DPAStore(keys, vals, device=dev)
+    torch.cuda.synchronize()
+    store_build_s = time.perf_counter() - t0
+    oracle = Oracle(keys, vals)
+    n_draw = W * (ROUNDS + 11) + n_upd * (ROUNDS + 1)
+    zipf = keys[datasets.zipf_indices(keys.size, n_draw, alpha=ZIPF, seed=SEED)]
+    zpos = 0
+
+    def draw(n):
+        nonlocal zpos
+        zpos += n
+        assert zpos <= zipf.size, "draw budget exceeded"
+        return zipf[zpos - n : zpos]
+
+    def do_get(q):
+        v, f = st.get(q)
+        oracle.check_get(q, v, f)
+
+    def do_update(n):
+        ks = draw(n)
+        vs = rng.integers(0, 2**64, ks.size, dtype=np.uint64)
+        assert (st.put(ks, vs) == 0).all()
+        oracle.put(ks, vs)
+
+    # warm-up: buffered writes, point-cache and anchor-cache admits
+    do_get(draw(W))
+    do_update(n_upd)
+    do_get(draw(W))
+    warm_starts = draw(W)
+    oracle.check_range(warm_starts, 10, st.range(warm_starts, limit=10))
+
+    # ---- 2. kernels against their plain versions ---------------------------
+    kernels = {}
+    q = draw(W)
+    khi, klo = st._limbs(q)
+    kw = dict(depth=st.depth, eps_inner=st.cfg.eps_inner, eps_leaf=st.cfg.eps_leaf)
+    ccfg, scfg = st.cache_cfg, st.scan_cache_cfg
+    tid = hotcache.steer(khi, klo, ccfg.n_threads)
+    stid = hotcache.steer(khi, klo, scfg.n_threads)
+    c, sc = st.cache, st.scan_cache
+    pk2 = dict(bloom_bits=ccfg.bloom_bits, n_buckets=ccfg.n_buckets,
+               salts_bloom=hotcache.SALT_BLOOM, salt_bucket=hotcache.SALT_BUCKET)
+    pk1 = dict(bloom_bits=scfg.bloom_bits, n_buckets=scfg.n_buckets,
+               salts_bloom=scancache.SALT_SBLOOM, salt_bucket=scancache.SALT_SBUCKET)
+    sbleaf = sc.bleaf[..., None]
+    start = lookup.traverse(st.tree, khi, klo, depth=st.depth, eps_inner=st.cfg.eps_inner)
+    L, ML = 10 + 4 * st.cfg.ib_cap, 4
+    cases = {
+        "get": (
+            lambda: traverse.get_cuda(st.tree, st.ib, khi, klo, **kw),
+            lambda: traverse.get_plain(st.tree, st.ib, khi, klo, **kw),
+            "src/repro_torch/csrc/traverse.cu", "src/repro/kernels/traverse.py:59",
+        ),
+        "cache_probe_p2": (
+            lambda: cache_probe.probe_cuda(c.bloom, c.bkey, c.bval, c.bvalid, tid, khi, klo, **pk2),
+            lambda: cache_probe.probe_plain(c.bloom, c.bkey, c.bval, c.bvalid, tid, khi, klo, **pk2),
+            "src/repro_torch/csrc/cache_probe.cu", "src/repro/kernels/cache_probe.py:51",
+        ),
+        "cache_probe_p1": (
+            lambda: cache_probe.probe_cuda(sc.bloom, sc.bkey, sbleaf, sc.bvalid, stid, khi, klo, **pk1),
+            lambda: cache_probe.probe_plain(sc.bloom, sc.bkey, sbleaf, sc.bvalid, stid, khi, klo, **pk1),
+            "src/repro_torch/csrc/cache_probe.cu", "src/repro/kernels/cache_probe.py:51",
+        ),
+        "range_walk": (
+            lambda: range_scan.walk_cuda(st.tree, start, khi, klo, limit=L, max_leaves=ML),
+            lambda: range_scan.walk_plain(st.tree, start, khi, klo, limit=L, max_leaves=ML),
+            "src/repro_torch/csrc/range_scan.cu", "src/repro/kernels/range_scan.py:29",
+        ),
+    }
+    for name, (kern, plain, source, replaces) in cases.items():
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        err = 0.0  # every output is an integer or a flag: the tolerance is 0
+        for a, b in zip(got, want):
+            assert a.shape == b.shape and a.dtype == b.dtype, name
+            diff = (a.to(torch.float64) - b.to(torch.float64)).abs()
+            err = max(err, float(diff.max()) if diff.numel() else 0.0)
+        if err != 0.0:
+            raise AssertionError(f"kernel {name} disagrees with its plain version ({err})")
+        ms, plain_ms = time_ms(torch, kern), time_ms(torch, plain)
+        if name == "get":
+            nbytes, nops = get_bytes_ops(torch, lookup, keys_mod, st, khi, klo)
+        elif name == "cache_probe_p2":
+            nbytes, nops = probe_bytes_ops(
+                torch, cacheset, keys_mod, c, tid, khi, klo, ccfg, hotcache.SALT_BLOOM, hotcache.SALT_BUCKET, 2
+            )
+        elif name == "cache_probe_p1":
+            nbytes, nops = probe_bytes_ops(
+                torch, cacheset, keys_mod, sc, stid, khi, klo, scfg, scancache.SALT_SBLOOM, scancache.SALT_SBUCKET, 1
+            )
+        else:
+            nbytes, nops = walk_bytes_ops(torch, st.tree, got[5], L, ML)
+        bound_ms, bound_by = bound(nbytes, nops)
+        kernels[name] = {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        }
+        emit({"phase": "kernel", "kernel": name, "equal": True, "ms": ms, "plain_ms": plain_ms,
+              "bytes": nbytes, "ops": nops, "bound_ms": bound_ms, "bound_by": bound_by,
+              "shapes": {"requests": W, "depth": st.depth, "L": L if name == "range_walk" else None}})
+    del cases, got, want
+
+    # ---- 3. the main path --------------------------------------------------
+    build.reset_launches()
+    s0 = dataclasses.replace(st.stats)
+    get_s = get_n = range_s = range_n = 0.0
+
+    def timed_get(q):
+        nonlocal get_s, get_n
+        t = time.perf_counter()
+        v, f = st.get(q)
+        get_s += time.perf_counter() - t
+        get_n += q.size
+        oracle.check_get(q, v, f)
+
+    def timed_range(starts, limit, max_leaves=4):
+        nonlocal range_s, range_n
+        t = time.perf_counter()
+        res = st.range(starts, limit=limit, max_leaves=max_leaves)
+        range_s += time.perf_counter() - t
+        range_n += starts.size
+        oracle.check_range(starts, limit, res)
+        return res
+
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(ROUNDS):
+        timed_get(draw(W))
+        do_update(n_upd)
+    dels = rng.choice(keys, 4096, replace=False)
+    assert (st.delete(dels) == 0).all()
+    oracle.delete(dels)
+    timed_get(np.concatenate([dels[:2048], draw(W - 2048)]))
+    starts = draw(W)
+    timed_range(starts, 10)
+    timed_range(starts, 10)  # repeated starts: anchor-cache hits
+    r100 = timed_range(draw(W // 4), 100, max_leaves=1)
+    assert r100.rounds > 1, "the limit-100 wave must take several rounds"
+    t = time.perf_counter()
+    st.flush()
+    torch.cuda.synchronize()
+    flush_s = time.perf_counter() - t
+    timed_get(np.concatenate([dels[2048:], draw(W - 2048)]))
+    timed_range(draw(W), 10)
+    launches = dict(build.launches)
+    for k, n in launches.items():
+        assert n > 0, f"kernel {k} was not launched on the main path"
+        kernels[k]["launches"] = n
+    stats = st.stats
+    assert stats.flush_cycles == stats.stitch_applies, "batched flush: one apply per cycle"
+    assert stats.cache_hits > s0.cache_hits and stats.scan_hits > s0.scan_hits
+    emit({
+        "phase": "main", "keys": N_KEYS, "wave": W, "depth": st.depth,
+        "leaves_pool": int(st.tree.leaf_count.shape[0]), "slots_pool": int(st.tree.hbm_keys.shape[0]),
+        "gen_s": gen_s, "store_build_s": store_build_s,
+        "get_mops": get_n / get_s / 1e6, "range_mops": range_n / range_s / 1e6,
+        "get_requests": int(get_n), "range_requests": int(range_n), "range100_rounds": r100.rounds,
+        "flush_s": flush_s, "launches": launches,
+        "cache_hits": stats.cache_hits - s0.cache_hits, "scan_hits": stats.scan_hits - s0.scan_hits,
+        "flush_cycles": stats.flush_cycles, "stitch_applies": stats.stitch_applies,
+        "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "oracle": "all GET and RANGE answers equal",
+    })
+    # ---- where one wave's time goes (torch.profiler) ------------------------
+    from torch.profiler import ProfilerActivity, profile
+
+    waves = (("get", lambda q: st.get(q)), ("range", lambda q: st.range(q, limit=10)))
+    for op, run in waves:
+        q = draw(W)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            run(q)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3
+        ev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        dev_ms = sum(e.self_device_time_total for e in ev) / 1e3
+        top = sorted(ev, key=lambda e: -e.self_device_time_total)[:6]
+        emit({
+            "phase": "profile", "op": op, "requests": W, "wall_ms_profiled": wall_ms,
+            "device_ms": dev_ms, "device_busy": dev_ms / wall_ms,
+            "device_launches": sum(e.count for e in ev),
+            "top": [[e.key[:70], e.self_device_time_total / 1e3, e.count] for e in top],
+        })
+    del st, oracle, zipf, keys, vals
+    torch.cuda.empty_cache()
+
+    # ---- 4. the card against the CPU ---------------------------------------
+    pkeys = datasets.sparse(PARITY_KEYS, seed=SEED + 1)
+    pvals = pkeys ^ np.uint64(0xABCD)
+    stores = [DPAStore(pkeys, pvals, device=d) for d in (dev, "cpu")]
+    prng = np.random.default_rng(SEED + 2)
+    pz = pkeys[datasets.zipf_indices(pkeys.size, 200_000, alpha=ZIPF, seed=SEED + 3)]
+    live = pkeys.copy()
+
+    def same(results, what):
+        a, b = results
+        if isinstance(a, tuple):
+            for x, y in zip(a, b):
+                assert np.array_equal(x, y), what
+        elif hasattr(a, "counts"):
+            for f in ("keys", "vals", "counts", "truncated", "cursor_leaf", "cursor_key"):
+                assert np.array_equal(getattr(a, f), getattr(b, f)), f"{what}: {f}"
+            assert a.rounds == b.rounds and a.stats == b.stats, what
+        else:
+            assert np.array_equal(a, b), what
+
+    n_ops = 0
+    for step in range(12):
+        q = np.concatenate([prng.choice(pz, 4096), prng.integers(0, 2**63, 512, dtype=np.uint64)])
+        same([s.get(q) for s in stores], f"get {step}")
+        newk = prng.integers(0, 2**63, 1500, dtype=np.uint64)
+        newv = prng.integers(0, 2**64, newk.size, dtype=np.uint64)
+        same([s.put(newk, newv) for s in stores], f"put new {step}")
+        live = np.concatenate([live, newk])
+        oldk = prng.choice(pz, 1500)
+        same([s.put(oldk, oldk ^ np.uint64(step + 1)) for s in stores], f"put old {step}")
+        dk = prng.choice(live, 600)
+        same([s.delete(dk) for s in stores], f"delete {step}")
+        starts = np.concatenate([prng.choice(pz, 1024), prng.choice(live, 256)])
+        limit, ml = [(10, 4), (40, 1), (100, 2)][step % 3]
+        same([s.range(starts, limit=limit, max_leaves=ml) for s in stores], f"range {step}")
+        kmax = starts + np.uint64(2**44)
+        same([s.range(starts, limit=limit, k_max=kmax, max_leaves=ml) for s in stores], f"range k_max {step}")
+        rs = [s.range_with_state(starts[:256], limit=64, max_leaves=1, max_rounds=1) for s in stores]
+        same(rs, f"bounded {step}")
+        m = rs[0].truncated
+        if m.any():
+            same([s.range_with_state(starts[:256][m], limit=64, max_leaves=1, start_leaves=r.cursor_leaf[m])
+                  for s, r in zip(stores, rs)], f"resumed {step}")
+        if step % 4 == 3:
+            same([np.array(s.flush()) for s in stores], f"flush {step}")
+        n_ops += 8
+    same([s.items() for s in stores], "items")
+    a, b = stores
+    assert dataclasses.asdict(a.stats) == dataclasses.asdict(b.stats), "stats"
+    for to_np, fa, fb in (
+        (carry.tree_to_numpy, a.tree, b.tree),
+        (carry.ib_to_numpy, a.ib, b.ib),
+        (carry.cache_to_numpy, a.cache, b.cache),
+        (carry.scan_cache_to_numpy, a.scan_cache, b.scan_cache),
+    ):
+        xa, xb = to_np(fa), to_np(fb)
+        for f in xa:
+            assert np.array_equal(xa[f], xb[f]), f"state {f}"
+    emit({"phase": "parity", "keys": PARITY_KEYS, "op_waves": n_ops, "identical": True,
+          "flush_cycles": a.stats.flush_cycles, "cache_hits": a.stats.cache_hits,
+          "scan_hits": a.stats.scan_hits, "range_rounds_in_mesh": a.stats.range_rounds_in_mesh})
+
+    emit({"phase": "done", "seconds": time.perf_counter() - t_start})
+    print(json.dumps({"kernels": list(kernels.values())}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

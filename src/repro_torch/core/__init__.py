@@ -1,0 +1,28 @@
+"""DPA-Store core, ported to PyTorch: keys (u64 as int32-held u32 limbs),
+pla and tree (host image + device pools), lookup (batched traversal), the
+insert buffers and the two caches, patch + stitch + epoch (the update
+cycle), carry (state exchange with the JAX package) and the store facade.
+"""
+
+from .tree import TreeConfig, TreeImage, DeviceTree, build_image, SEG_CAP, NODE_SEGS
+from .api import KVStore, RangeResult
+from .hotcache import CacheConfig
+from .scancache import ScanCacheConfig
+from .store import DPAStore, StoreStats, STATUS_OK, STATUS_RETRY
+
+__all__ = [
+    "KVStore",
+    "RangeResult",
+    "TreeConfig",
+    "TreeImage",
+    "DeviceTree",
+    "build_image",
+    "SEG_CAP",
+    "NODE_SEGS",
+    "CacheConfig",
+    "ScanCacheConfig",
+    "DPAStore",
+    "StoreStats",
+    "STATUS_OK",
+    "STATUS_RETRY",
+]

@@ -1,0 +1,96 @@
+"""Boundaries of the port: it never imports JAX or the JAX package, it never
+falls back to the CPU unasked, and — on a machine with a card — each CUDA
+kernel equals its plain-torch version bitwise (skipped without CUDA)."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    for f in files:
+        bad = {m for m in _imported_roots(f) if m in ("jax", "jaxlib", "repro")}
+        assert not bad, f"{f.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+def test_importing_the_port_loads_no_jax():
+    code = (
+        "import sys, repro_torch, repro_torch.core, repro_torch.kernels.ops, "
+        "repro_torch.core.carry, repro_torch.core.datasets; "
+        "assert 'jax' not in sys.modules and 'repro' not in sys.modules, sorted(sys.modules)"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    subprocess.run([sys.executable, "-c", code], check=True, env=env, cwd=ROOT)
+
+
+def test_store_defaults_to_the_card():
+    from repro_torch.core import DPAStore
+
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: the default device is valid here")
+    keys = np.arange(1, 200, dtype=np.uint64) * np.uint64(7919)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DPAStore(keys, keys)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DPAStore(keys, keys, device="cuda")
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_kernels_equal_plain_versions_on_the_card(cuda_device):
+    from repro_torch.core import DPAStore, datasets, hotcache, lookup
+    from repro_torch.kernels import cache_probe, range_scan, traverse
+
+    keys = datasets.sparse(20000, seed=1)
+    st = DPAStore(keys, keys ^ np.uint64(0x5A5A), device=cuda_device)
+    rng = np.random.default_rng(2)
+    st.put(rng.integers(0, 2**63, 3000, dtype=np.uint64), rng.integers(0, 2**64, 3000, dtype=np.uint64))
+    st.delete(keys[:500])
+    q = np.concatenate([rng.choice(keys, 3000), rng.integers(0, 2**64, 1000, dtype=np.uint64)])
+    st.get(q)
+    st.get(q)
+    st.range(q[:500], limit=16)
+    khi, klo = st._limbs(q)
+    kw = dict(depth=st.depth, eps_inner=st.cfg.eps_inner, eps_leaf=st.cfg.eps_leaf)
+    for a, b in zip(traverse.get_cuda(st.tree, st.ib, khi, klo, **kw),
+                    traverse.get_plain(st.tree, st.ib, khi, klo, **kw)):
+        assert torch.equal(a, b)
+    tid = hotcache.steer(khi, klo, st.cache_cfg.n_threads)
+    c = st.cache
+    pk = dict(bloom_bits=st.cache_cfg.bloom_bits, n_buckets=st.cache_cfg.n_buckets,
+              salts_bloom=hotcache.SALT_BLOOM, salt_bucket=hotcache.SALT_BUCKET)
+    a = cache_probe.probe_cuda(c.bloom, c.bkey, c.bval, c.bvalid, tid, khi, klo, **pk)
+    b = cache_probe.probe_plain(c.bloom, c.bkey, c.bval, c.bvalid, tid, khi, klo, **pk)
+    assert bool(a[0].any()) and all(torch.equal(x, y) for x, y in zip(a, b))
+    start = lookup.traverse(st.tree, khi, klo, depth=st.depth, eps_inner=st.cfg.eps_inner)
+    start = torch.where(torch.arange(q.size, device=cuda_device) % 7 == 0, -1, start)  # dead lanes
+    for a, b in zip(range_scan.walk_cuda(st.tree, start, khi, klo, limit=74, max_leaves=4),
+                    range_scan.walk_plain(st.tree, start, khi, klo, limit=74, max_leaves=4)):
+        assert torch.equal(a, b)
