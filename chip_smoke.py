@@ -18,9 +18,25 @@ Phases, one JSON line each (any mismatch raises and exits non-zero):
                5% UPDATE), a DELETE wave, RANGE waves (limit 10, a repeat for
                anchor-cache hits, limit 100 at one leaf per round), flush.
                Every GET and RANGE answer is checked against a numpy oracle,
-               and every kernel's launch counter must advance.
+               and the launch counters of B1-B3 must advance.
 4. parity   — the same seeded op stream on a 200k-key store on the card and
                on the CPU: responses and final state tensors identical.
+5. paged    — the paged KV cache path at one llama3-405b attention layer's
+               widths (128 query heads, 8 KV heads, head_dim 128, bf16 pools
+               of 65536 blocks of 16 tokens: 4 GiB for K and V).  The page
+               table is first bulk-loaded with other sequences' pages until
+               87.5% of the pool is taken, as on a busy server.  8 sequences
+               then run interleaved: a prompt of 128-512 tokens appended, then
+               128-512 decode steps of one append and one ``attend`` each.
+               Every attend is held against ``decode_attention`` on the dense
+               K/V, slot lists against the slots the appends took; a release
+               and a re-append into the freed blocks follow.  Kernels B1-B3
+               are held bitwise against their plain versions on the page
+               table's state at the path's 1-request shapes.  Kernel B4 must
+               have run on the path; it is then held against its plain
+               version bitwise and timed at two shapes (one sequence's slot
+               list, 16384 random slots of the pool).  It is checked here and
+               not in phase 2 because its first shape comes from this path.
 
 Then the kernels' summary line and, last, ``{"ok": true, "device": ...}``.
 Exits non-zero without printing a result when CUDA is absent or when the
@@ -46,6 +62,18 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 INT_OPS_PER_S = 67e12  # H100 SXM non-tensor-core 32-bit rate (data sheet, f32)
 ZIPF = 0.99
+# the paged phase: one attention layer of llama3-405b (configs/llama3_405b.py)
+PAGED_HEADS, PAGED_KV_HEADS, PAGED_HEAD_DIM = 128, 8, 128
+PAGED_BLOCK = 16  # PagedAttentionLayer's default block_size
+PAGED_BLOCKS = 65536  # 1,048,576 token slots: 2 GiB per bf16 pool
+PAGED_SEQS = 8
+PAGED_PROMPT = (128, 512)  # prompt tokens per sequence, drawn from the seed
+PAGED_DECODE = (128, 512)  # decode steps per sequence (one append + one attend)
+PAGED_REAPPEND = 256  # tokens appended after two releases: fits their blocks
+PAGED_BG_FILL = 0.875  # the pool share other sequences' pages hold
+PAGED_BG_BLOCKS = (256, 768)  # their blocks each: 4k-12k tokens
+GATHER_RANDOM = 16384  # B4's second shape: 512 MiB read and 512 MiB written
+ATTEND_TOL = 1e-4  # paged vs dense on the same bf16 K/V: f32 summation order only
 
 
 def emit(obj) -> None:
@@ -213,16 +241,340 @@ def walk_bytes_ops(torch, tree, visited, L, max_leaves):
     return nbytes, nops
 
 
+# ------------------------------------------------- kernels B1-B3 on a store
+
+
+def kernel_cases(torch, st, q, L: int, ML: int):
+    """Kernels B1-B3 and their plain versions on store ``st``'s state for the
+    request keys ``q`` (a walk of limit ``L`` over ``ML`` leaves from the
+    keys' start leaves): name -> (kernel call, plain call, source, the TPU
+    kernel it replaces, bytes-and-operations of this run's inputs)."""
+    from repro_torch.core import cacheset, hotcache, lookup, scancache
+    from repro_torch.core import keys as keys_mod
+    from repro_torch.kernels import cache_probe, range_scan, traverse
+
+    khi, klo = st._limbs(q)
+    kw = dict(depth=st.depth, eps_inner=st.cfg.eps_inner, eps_leaf=st.cfg.eps_leaf)
+    ccfg, scfg = st.cache_cfg, st.scan_cache_cfg
+    tid = hotcache.steer(khi, klo, ccfg.n_threads)
+    stid = hotcache.steer(khi, klo, scfg.n_threads)
+    c, sc = st.cache, st.scan_cache
+    pk2 = dict(bloom_bits=ccfg.bloom_bits, n_buckets=ccfg.n_buckets,
+               salts_bloom=hotcache.SALT_BLOOM, salt_bucket=hotcache.SALT_BUCKET)
+    pk1 = dict(bloom_bits=scfg.bloom_bits, n_buckets=scfg.n_buckets,
+               salts_bloom=scancache.SALT_SBLOOM, salt_bucket=scancache.SALT_SBUCKET)
+    sbleaf = sc.bleaf[..., None]
+    start = lookup.traverse(st.tree, khi, klo, depth=st.depth, eps_inner=st.cfg.eps_inner)
+    return {
+        "get": (
+            lambda: traverse.get_cuda(st.tree, st.ib, khi, klo, **kw),
+            lambda: traverse.get_plain(st.tree, st.ib, khi, klo, **kw),
+            "src/repro_torch/csrc/traverse.cu", "src/repro/kernels/traverse.py:59",
+            lambda got: get_bytes_ops(torch, lookup, keys_mod, st, khi, klo),
+        ),
+        "cache_probe_p2": (
+            lambda: cache_probe.probe_cuda(c.bloom, c.bkey, c.bval, c.bvalid, tid, khi, klo, **pk2),
+            lambda: cache_probe.probe_plain(c.bloom, c.bkey, c.bval, c.bvalid, tid, khi, klo, **pk2),
+            "src/repro_torch/csrc/cache_probe.cu", "src/repro/kernels/cache_probe.py:51",
+            lambda got: probe_bytes_ops(torch, cacheset, keys_mod, c, tid, khi, klo, ccfg,
+                                        hotcache.SALT_BLOOM, hotcache.SALT_BUCKET, 2),
+        ),
+        "cache_probe_p1": (
+            lambda: cache_probe.probe_cuda(sc.bloom, sc.bkey, sbleaf, sc.bvalid, stid, khi, klo, **pk1),
+            lambda: cache_probe.probe_plain(sc.bloom, sc.bkey, sbleaf, sc.bvalid, stid, khi, klo, **pk1),
+            "src/repro_torch/csrc/cache_probe.cu", "src/repro/kernels/cache_probe.py:51",
+            lambda got: probe_bytes_ops(torch, cacheset, keys_mod, sc, stid, khi, klo, scfg,
+                                        scancache.SALT_SBLOOM, scancache.SALT_SBUCKET, 1),
+        ),
+        "range_walk": (
+            lambda: range_scan.walk_cuda(st.tree, start, khi, klo, limit=L, max_leaves=ML),
+            lambda: range_scan.walk_plain(st.tree, start, khi, klo, limit=L, max_leaves=ML),
+            "src/repro_torch/csrc/range_scan.cu", "src/repro/kernels/range_scan.py:29",
+            lambda got: walk_bytes_ops(torch, st.tree, got[5], L, ML),
+        ),
+    }
+
+
+def max_abs_err(torch, name: str, got, want) -> float:
+    """Every output of B1-B3 is an integer or a flag: the tolerance is 0."""
+    torch.cuda.synchronize()
+    err = 0.0
+    for a, b in zip(got, want, strict=True):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        diff = (a.to(torch.float64) - b.to(torch.float64)).abs()
+        err = max(err, float(diff.max()) if diff.numel() else 0.0)
+    if err != 0.0:
+        raise AssertionError(f"kernel {name} disagrees with its plain version ({err})")
+    return err
+
+
+# ----------------------------------------------------------- paged phase
+
+
+def _median_ms(xs) -> float:
+    return float(np.median(xs) * 1e3) if len(xs) else float("nan")
+
+
+def _page_table_population(rng, n_blocks: int, live_ids):
+    """Other sequences' pages for the page table: ids drawn around the live
+    sequences' ids, each with whole blocks of 4k-12k tokens, until the pool
+    is ``PAGED_BG_FILL`` full.  Returns (items, seq_len, free): the table's
+    sorted (keys, vals), ``{seq_id: tokens}``, and the free slot list in pop
+    order, with the slots taken as appends take them (0, 1, 2, ...)."""
+    from repro_torch.serving.paged_cache import BLOCK_BITS, _SENTINEL_SEQ, page_key
+
+    ids = rng.permutation(np.setdiff1d(np.arange(1, 4096), live_ids))
+    target = int(PAGED_BG_FILL * n_blocks)
+    counts = []
+    while sum(counts) < target:
+        counts.append(int(min(rng.integers(PAGED_BG_BLOCKS[0], PAGED_BG_BLOCKS[1] + 1), target - sum(counts))))
+    ids = ids[: len(counts)].astype(np.uint64)
+    counts = np.array(counts)
+    keys = np.concatenate([(i << np.uint64(BLOCK_BITS)) | np.arange(c, dtype=np.uint64) for i, c in zip(ids, counts)])
+    vals = np.arange(keys.size, dtype=np.uint64)
+    keys = np.append(keys, np.uint64(page_key(_SENTINEL_SEQ, 0)))
+    vals = np.append(vals, np.uint64(0))
+    order = np.argsort(keys)
+    seq_len = {int(i): int(c) * PAGED_BLOCK for i, c in zip(ids, counts)}
+    free = list(range(n_blocks - 1, int(counts.sum()) - 1, -1))
+    return (keys[order], vals[order]), seq_len, free
+
+
+def paged_phase(torch, dev, kernels) -> None:
+    """Phase 5: the paged KV cache path, kernels B1-B3 on its page table,
+    then kernel B4 against its plain version.  Adds B4's entry to
+    ``kernels``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import build, ops, paged_gather
+    from repro_torch.models.layers import decode_attention
+    from repro_torch.serving.engine import PagedAttentionLayer
+    from repro_torch.serving.paged_cache import PagedCache, page_key
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # attention products in full f32
+    H, HKV, HD, BS, NB = PAGED_HEADS, PAGED_KV_HEADS, PAGED_HEAD_DIM, PAGED_BLOCK, PAGED_BLOCKS
+    rng = np.random.default_rng(SEED + 4)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    layer = PagedAttentionLayer(HKV, HD, block_size=BS, n_blocks=NB, device=dev)
+    pool_bytes = 2 * layer.cache.pool_k.numel() * layer.cache.pool_k.element_size()
+    assert pool_bytes == 2 * NB * BS * HKV * HD * 2, "two bf16 pools"
+
+    ids = [101 + i for i in range(PAGED_SEQS)]
+    prompt = dict(zip(ids, (int(n) for n in rng.integers(PAGED_PROMPT[0], PAGED_PROMPT[1] + 1, PAGED_SEQS))))
+    decode = dict(zip(ids, (int(n) for n in rng.integers(PAGED_DECODE[0], PAGED_DECODE[1] + 1, PAGED_SEQS))))
+    lengths = {sid: prompt[sid] + decode[sid] for sid in ids}
+    reappend = (901, PAGED_REAPPEND)
+    t = time.perf_counter()
+    items, bg_len, free = _page_table_population(rng, NB, [*ids, reappend[0]])
+    layer.cache = cache = PagedCache.from_state(layer.cache.pool_k, layer.cache.pool_v, free, bg_len, items)
+    torch.cuda.synchronize()
+    table_build_s = time.perf_counter() - t
+    table_keys = int(items[0].size)
+
+    n_tok = sum(lengths.values()) + reappend[1] + 2
+    kv = torch.randn((2, n_tok, HKV, HD), generator=gen, device=dev)  # f32 K and V per token
+    n_att = sum(decode.values())
+    qs = torch.randn((n_att + 2, H, HD), generator=gen, device=dev)
+    tokens = {sid: [] for sid in [*ids, reappend[0]]}
+    alloc = {sid: [] for sid in tokens}  # host record of the slots the appends took
+    put_s, get_s = [], []
+    nxt = 0
+
+    def append(sid) -> float:
+        nonlocal nxt
+        pos = cache.seq_len.get(sid, 0)
+        if pos % BS == 0 and sid in alloc:
+            alloc[sid].append(cache.free[-1])
+        t = time.perf_counter()
+        layer.append(sid, kv[0, nxt], kv[1, nxt])
+        dt = time.perf_counter() - t
+        (put_s if pos % BS == 0 else get_s).append(dt)
+        if sid in tokens:
+            tokens[sid].append(nxt)
+        nxt += 1
+        return dt
+
+    # warm-up, not timed or counted: two decode steps of a background
+    # sequence (a PUT append, then a GET append, each with an attend)
+    warm = next(iter(bg_len))
+    for i in range(2):
+        append(warm)
+        layer.attend(warm, qs[n_att + i])
+    torch.cuda.synchronize()
+    put_s.clear()
+    get_s.clear()
+
+    # the path: interleaved steps; a sequence appends its prompt, then each
+    # decode step appends one token and attends
+    build.reset_launches()
+    attend_s, step_s, att = [], [], []
+    app_s = 0.0
+    t0 = time.perf_counter()
+    for step in range(max(lengths.values())):
+        for sid in ids:
+            if step >= lengths[sid]:
+                continue
+            dt = append(sid)
+            app_s += dt
+            if step >= prompt[sid]:
+                t = time.perf_counter()
+                out = layer.attend(sid, qs[len(att)])
+                torch.cuda.synchronize()
+                attend_s.append(time.perf_counter() - t)
+                step_s.append(dt + attend_s[-1])
+                att.append((sid, len(tokens[sid]), out))
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    n_appends = sum(lengths.values())
+    released = ids[:2]
+    freed = []
+    for sid in released:
+        n_before = len(cache.free)
+        assert cache.release(sid) == len(alloc[sid])
+        freed += cache.free[n_before:]
+    for _ in range(reappend[1]):
+        append(reappend[0])
+    re_out = layer.attend(reappend[0], qs[n_att + 1])
+    torch.cuda.synchronize()
+    launches = dict(build.launches)
+    for k in ("get", "cache_probe_p2", "cache_probe_p1", "range_walk", "paged_gather"):
+        assert launches[k] > 0, f"kernel {k} was not launched on the paged path"
+    assert launches["paged_gather"] == 2 * (n_att + 1), "one K and one V gather per attend"
+    peak = torch.cuda.max_memory_allocated() - base
+
+    # -- checks: slot lists, slot reuse, every attend against the dense K/V
+    for sid in ids:
+        if sid not in released:
+            assert cache.lookup_slots(sid).tolist() == alloc[sid], f"slots of sequence {sid}"
+    new_slots = cache.lookup_slots(reappend[0]).tolist()
+    assert new_slots == alloc[reappend[0]] and set(new_slots) <= set(freed), "freed blocks reused"
+    assert all(cache.lookup_slots(sid).size == 0 for sid in released)
+    att.append((reappend[0], reappend[1], re_out))
+    qidx = [*range(n_att), n_att + 1]
+    err = 0.0
+    for (sid, n, got), qi in zip(att, qidx):
+        idx = torch.tensor(tokens[sid][:n], device=dev)
+        dk, dv = (kv[j, idx].to(cache.pool_k.dtype)[None] for j in (0, 1))  # what the pools hold
+        want = decode_attention(qs[qi][None, None], dk, dv, n)[0, 0]
+        assert got.shape == (H, HD) and bool(torch.isfinite(got).all())
+        err = max(err, float((got - want).abs().max()))
+    assert err <= ATTEND_TOL, f"paged attention vs dense: {err}"
+    assert peak <= 1.25 * pool_bytes, f"peak device memory {peak} for {pool_bytes} of pools"
+    st = cache.table.stats
+    assert st.flush_cycles == st.stitch_applies and st.flush_cycles > 0
+
+    # -- kernels B1-B3 against their plain versions on the page table's
+    # state, at the path's shapes: a 1-request wave, and the walk that
+    # lookup_slots starts (limit = blocks + max_leaves x ib_cap)
+    longest = max((sid for sid in ids if sid not in released), key=lambda s: lengths[s])
+    n_blk = len(alloc[longest])
+    ml = max(4, n_blk // 16 + 2)
+    q = np.array([page_key(longest, 0)], dtype=np.uint64)
+    table_kernels = {}
+    for name, (kern, plain, *_rest) in kernel_cases(torch, cache.table, q, n_blk + ml * cache.table.cfg.ib_cap, ml).items():
+        max_abs_err(torch, name, kern(), plain())
+        table_kernels[name] = {"equal": True, "ms": time_ms(torch, kern), "plain_ms": time_ms(torch, plain)}
+
+    # -- where one decode step's time goes, on the longest live sequence
+    key = np.array([page_key(longest, 0)], dtype=np.uint64)
+    table_get_s = []
+    for _ in range(20):
+        t = time.perf_counter()
+        cache.table.get(key)
+        table_get_s.append(time.perf_counter() - t)
+    range_s = []
+    for _ in range(10):
+        t = time.perf_counter()
+        slots_np = cache.lookup_slots(longest)
+        range_s.append(time.perf_counter() - t)
+    sl = torch.from_numpy(slots_np).to(dev)
+    gk, gv, n_live = cache.gather(longest)
+    gather_ms = time_ms(torch, lambda: (ops.paged_gather(cache.pool_k, sl), ops.paged_gather(cache.pool_v, sl)))
+    attn_ms = time_ms(torch, lambda: decode_attention(qs[0][None, None], gk[None], gv[None], n_live))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        layer.append(longest, kv[0, 0], kv[1, 0])
+        layer.attend(longest, qs[0])
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t) * 1e3
+    ev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in ev) / 1e3
+    emit({
+        "phase": "paged", "model": "llama3-405b, one attention layer", "heads": H, "kv_heads": HKV,
+        "head_dim": HD, "block_size": BS, "n_blocks": NB, "pool_dtype": str(cache.pool_k.dtype),
+        "pool_bytes": pool_bytes, "peak_device_bytes": peak,
+        "table_keys_loaded": table_keys, "background_seqs": len(bg_len), "table_build_s": table_build_s,
+        "pool_blocks_used": NB - len(cache.free), "table_keys_after": int(cache.table.items()[0].size),
+        "prompts": list(prompt.values()), "decodes": list(decode.values()),
+        "appends": n_appends, "append_s": app_s, "appends_per_s": n_appends / app_s,
+        "loop_s": loop_s, "decode_tokens_per_s": n_att / loop_s,
+        "attends": n_att, "attends_per_s": n_att / sum(attend_s), "attend_ms_median": _median_ms(attend_s),
+        "attend_ms_p99": float(np.percentile(attend_s, 99) * 1e3), "decode_step_ms_median": _median_ms(step_s),
+        "decode_step_ms_p99": float(np.percentile(step_s, 99) * 1e3),
+        "released": released, "freed_blocks": len(freed), "reappended_blocks": len(new_slots),
+        "launches": launches, "attend_max_abs_err": err, "attend_tol": ATTEND_TOL, "attends_checked": len(att),
+        "table": {f: getattr(st, f) for f in ("gets", "puts", "deletes", "ranges", "cache_hits",
+                                             "flush_cycles", "stitch_applies", "scan_hits")},
+        "table_depth": cache.table.depth, "table_kernels": table_kernels,
+        "decode_step": {
+            "append_get_ms_median": _median_ms(get_s), "append_put_ms_median": _median_ms(put_s),
+            "append_put_ms_max": max(put_s) * 1e3, "table_get_ms_median": _median_ms(table_get_s),
+            "range_ms_median": _median_ms(range_s), "range_blocks": int(sl.numel()),
+            "gather_kv_device_ms": gather_ms, "attention_device_ms": attn_ms,
+            "profiled_wall_ms": prof_wall_ms, "profiled_device_ms": dev_ms, "device_busy": dev_ms / prof_wall_ms,
+            "device_launches": sum(e.count for e in ev),
+        },
+        "seconds": time.perf_counter() - t_phase,
+    })
+
+    # -- kernel B4 against its plain version and index_select, at two shapes
+    rpool = torch.empty_like(cache.pool_k).normal_(generator=gen)
+    random_slots = torch.from_numpy(rng.choice(NB, GATHER_RANDOM, replace=False).astype(np.int32)).to(dev)
+    block_bytes = cache.pool_k[0].numel() * cache.pool_k.element_size()
+    for shape, pool, slots in (("path", cache.pool_k, sl), ("random", rpool, random_slots)):
+        got, want = paged_gather.gather_cuda(pool, slots), paged_gather.gather_plain(pool, slots)
+        clamped = paged_gather.clamp_slots(slots, NB)
+        lib = pool.index_select(0, clamped)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape and got.dtype == want.dtype
+        gerr = float((got.float() - want.float()).abs().max())
+        if not (torch.equal(got.view(torch.int16), want.view(torch.int16))
+                and torch.equal(lib.view(torch.int16), want.view(torch.int16))):
+            raise AssertionError(f"kernel paged_gather disagrees with its plain version ({shape}, {gerr})")
+        del got, want, lib
+        ms = time_ms(torch, lambda: paged_gather.gather_cuda(pool, slots))
+        plain_ms = time_ms(torch, lambda: paged_gather.gather_plain(pool, slots))
+        library_ms = time_ms(torch, lambda: pool.index_select(0, clamped))
+        n = int(slots.numel())
+        nbytes = 2 * n * block_bytes + 4 * n
+        bound_ms, bound_by = bound(nbytes, 0)
+        emit({"phase": "kernel", "kernel": "paged_gather", "equal": True, "max_abs_err": gerr, "shape": shape, "slots": n,
+              "block_bytes": block_bytes, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+              "bytes": nbytes, "bound_ms": bound_ms, "bound_by": bound_by, "gb_per_s": nbytes / ms / 1e6})
+        if shape == "path":
+            kernels["paged_gather"] = {
+                "name": "paged_gather", "route": "cuda", "source": "src/repro_torch/csrc/paged_gather.cu",
+                "replaces": "src/repro/kernels/paged_gather.py:21", "launches": launches["paged_gather"],
+                "max_abs_err": gerr, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": library_ms,
+            }
+    del layer, cache, rpool, kv
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------------ main
 
 
 def main() -> int:
     torch = _setup()
 
-    from repro_torch.core import DPAStore, cacheset, datasets, hotcache, lookup, scancache
-    from repro_torch.core import keys as keys_mod
-    from repro_torch.core import carry
-    from repro_torch.kernels import build, cache_probe, range_scan, traverse
+    from repro_torch.core import DPAStore, carry, datasets
+    from repro_torch.kernels import build
 
     dev = torch.device("cuda")
     t_start = time.perf_counter()
@@ -284,65 +636,12 @@ def main() -> int:
 
     # ---- 2. kernels against their plain versions ---------------------------
     kernels = {}
-    q = draw(W)
-    khi, klo = st._limbs(q)
-    kw = dict(depth=st.depth, eps_inner=st.cfg.eps_inner, eps_leaf=st.cfg.eps_leaf)
-    ccfg, scfg = st.cache_cfg, st.scan_cache_cfg
-    tid = hotcache.steer(khi, klo, ccfg.n_threads)
-    stid = hotcache.steer(khi, klo, scfg.n_threads)
-    c, sc = st.cache, st.scan_cache
-    pk2 = dict(bloom_bits=ccfg.bloom_bits, n_buckets=ccfg.n_buckets,
-               salts_bloom=hotcache.SALT_BLOOM, salt_bucket=hotcache.SALT_BUCKET)
-    pk1 = dict(bloom_bits=scfg.bloom_bits, n_buckets=scfg.n_buckets,
-               salts_bloom=scancache.SALT_SBLOOM, salt_bucket=scancache.SALT_SBUCKET)
-    sbleaf = sc.bleaf[..., None]
-    start = lookup.traverse(st.tree, khi, klo, depth=st.depth, eps_inner=st.cfg.eps_inner)
     L, ML = 10 + 4 * st.cfg.ib_cap, 4
-    cases = {
-        "get": (
-            lambda: traverse.get_cuda(st.tree, st.ib, khi, klo, **kw),
-            lambda: traverse.get_plain(st.tree, st.ib, khi, klo, **kw),
-            "src/repro_torch/csrc/traverse.cu", "src/repro/kernels/traverse.py:59",
-        ),
-        "cache_probe_p2": (
-            lambda: cache_probe.probe_cuda(c.bloom, c.bkey, c.bval, c.bvalid, tid, khi, klo, **pk2),
-            lambda: cache_probe.probe_plain(c.bloom, c.bkey, c.bval, c.bvalid, tid, khi, klo, **pk2),
-            "src/repro_torch/csrc/cache_probe.cu", "src/repro/kernels/cache_probe.py:51",
-        ),
-        "cache_probe_p1": (
-            lambda: cache_probe.probe_cuda(sc.bloom, sc.bkey, sbleaf, sc.bvalid, stid, khi, klo, **pk1),
-            lambda: cache_probe.probe_plain(sc.bloom, sc.bkey, sbleaf, sc.bvalid, stid, khi, klo, **pk1),
-            "src/repro_torch/csrc/cache_probe.cu", "src/repro/kernels/cache_probe.py:51",
-        ),
-        "range_walk": (
-            lambda: range_scan.walk_cuda(st.tree, start, khi, klo, limit=L, max_leaves=ML),
-            lambda: range_scan.walk_plain(st.tree, start, khi, klo, limit=L, max_leaves=ML),
-            "src/repro_torch/csrc/range_scan.cu", "src/repro/kernels/range_scan.py:29",
-        ),
-    }
-    for name, (kern, plain, source, replaces) in cases.items():
+    for name, (kern, plain, source, replaces, cost) in kernel_cases(torch, st, draw(W), L, ML).items():
         got, want = kern(), plain()
-        torch.cuda.synchronize()
-        err = 0.0  # every output is an integer or a flag: the tolerance is 0
-        for a, b in zip(got, want):
-            assert a.shape == b.shape and a.dtype == b.dtype, name
-            diff = (a.to(torch.float64) - b.to(torch.float64)).abs()
-            err = max(err, float(diff.max()) if diff.numel() else 0.0)
-        if err != 0.0:
-            raise AssertionError(f"kernel {name} disagrees with its plain version ({err})")
+        err = max_abs_err(torch, name, got, want)
         ms, plain_ms = time_ms(torch, kern), time_ms(torch, plain)
-        if name == "get":
-            nbytes, nops = get_bytes_ops(torch, lookup, keys_mod, st, khi, klo)
-        elif name == "cache_probe_p2":
-            nbytes, nops = probe_bytes_ops(
-                torch, cacheset, keys_mod, c, tid, khi, klo, ccfg, hotcache.SALT_BLOOM, hotcache.SALT_BUCKET, 2
-            )
-        elif name == "cache_probe_p1":
-            nbytes, nops = probe_bytes_ops(
-                torch, cacheset, keys_mod, sc, stid, khi, klo, scfg, scancache.SALT_SBLOOM, scancache.SALT_SBUCKET, 1
-            )
-        else:
-            nbytes, nops = walk_bytes_ops(torch, st.tree, got[5], L, ML)
+        nbytes, nops = cost(got)
         bound_ms, bound_by = bound(nbytes, nops)
         kernels[name] = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -352,7 +651,7 @@ def main() -> int:
         emit({"phase": "kernel", "kernel": name, "equal": True, "ms": ms, "plain_ms": plain_ms,
               "bytes": nbytes, "ops": nops, "bound_ms": bound_ms, "bound_by": bound_by,
               "shapes": {"requests": W, "depth": st.depth, "L": L if name == "range_walk" else None}})
-    del cases, got, want
+    del got, want
 
     # ---- 3. the main path --------------------------------------------------
     build.reset_launches()
@@ -396,9 +695,9 @@ def main() -> int:
     timed_get(np.concatenate([dels[2048:], draw(W - 2048)]))
     timed_range(draw(W), 10)
     launches = dict(build.launches)
-    for k, n in launches.items():
-        assert n > 0, f"kernel {k} was not launched on the main path"
-        kernels[k]["launches"] = n
+    for k in kernels:  # the kernels of this path (phase 2); B4 serves the paged path
+        assert launches[k] > 0, f"kernel {k} was not launched on the main path"
+        kernels[k]["launches"] = launches[k]
     stats = st.stats
     assert stats.flush_cycles == stats.stitch_applies, "batched flush: one apply per cycle"
     assert stats.cache_hits > s0.cache_hits and stats.scan_hits > s0.scan_hits
@@ -499,6 +798,8 @@ def main() -> int:
     emit({"phase": "parity", "keys": PARITY_KEYS, "op_waves": n_ops, "identical": True,
           "flush_cycles": a.stats.flush_cycles, "cache_hits": a.stats.cache_hits,
           "scan_hits": a.stats.scan_hits, "range_rounds_in_mesh": a.stats.range_rounds_in_mesh})
+
+    paged_phase(torch, dev, kernels)
 
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)

@@ -7,6 +7,9 @@ return the port's state on a given device; the ``*_to_numpy`` inverses give
 back the same dict (u32 arrays as ``uint32``, flags as ``bool``).  This is
 the counterpart of carrying weights: it lets one test feed the same tree,
 insert buffers and caches to both packages.
+
+A whole paged KV cache is carried by ``serving.paged_cache.PagedCache``'s
+``from_numpy`` / ``to_numpy``.
 """
 
 from __future__ import annotations

@@ -26,7 +26,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("traverse", "cache_probe", "range_scan")
+SOURCES = ("traverse", "cache_probe", "range_scan", "paged_gather")
 NVCC_FLAGS = [
     "-gencode",
     "arch=compute_90a,code=sm_90a",
@@ -44,6 +44,7 @@ launches: Dict[str, int] = {
     "cache_probe_p2": 0,
     "cache_probe_p1": 0,
     "range_walk": 0,
+    "paged_gather": 0,
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

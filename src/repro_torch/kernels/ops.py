@@ -4,7 +4,8 @@ package's ``kernels/ops.py``.
 Every op dispatches on the device of its tensors: CUDA tensors go to the
 kernel (the wrapper launches it or raises), CPU tensors to the kernel's
 plain-torch version.  The store calls these ops for GET, the cache probes
-and RANGE, so on the card the kernels carry the main path.
+and RANGE, and the paged KV cache calls ``paged_gather``, so on the card the
+kernels carry both paths.
 
 ``range_scan_loop`` always runs kernel walk -> plain-torch insert-buffer
 merge epilogue -> continuation loop, so the CPU tests exercise the same
@@ -21,6 +22,7 @@ from ..core.keys import limb_le, u32
 from ..core.lookup import IB_DEL, IB_EMPTY, InsertBuffers
 from ..core.scancache import ScanCacheConfig
 from . import cache_probe as _probe
+from . import paged_gather as _paged
 from . import range_scan as _range
 from . import traverse as _traverse
 
@@ -40,6 +42,12 @@ def cache_probe(cache, tid, khi, klo, *, cfg: CacheConfig):
 def scan_anchor_probe(cache, tid, khi, klo, *, cfg: ScanCacheConfig):
     """Scan-anchor cache probe (kernel B2, P=1): (hit, leaf)."""
     return _probe.anchor_probe(cache, tid, khi, klo, cfg=cfg)
+
+
+def paged_gather(pool, slots):
+    """KV blocks ``pool[slots]`` (kernel B4): a fresh (n, bs, H, hd) buffer;
+    zeros of shape (0, bs, H, hd) for an empty slot list."""
+    return _paged.gather(pool, slots)
 
 
 def _empty_scan(khi, klo):

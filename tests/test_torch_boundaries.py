@@ -1,6 +1,7 @@
 """Boundaries of the port: it never imports JAX or the JAX package, it never
 falls back to the CPU unasked, and — on a machine with a card — each CUDA
-kernel equals its plain-torch version bitwise (skipped without CUDA)."""
+kernel equals its plain-torch version bitwise (skipped without CUDA).  This
+file imports no JAX, so its card tests run on a machine without it."""
 
 import ast
 import os
@@ -37,11 +38,30 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 def test_importing_the_port_loads_no_jax():
     code = (
         "import sys, repro_torch, repro_torch.core, repro_torch.kernels.ops, "
-        "repro_torch.core.carry, repro_torch.core.datasets; "
+        "repro_torch.core.carry, repro_torch.core.datasets, repro_torch.serving.engine; "
         "assert 'jax' not in sys.modules and 'repro' not in sys.modules, sorted(sys.modules)"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     subprocess.run([sys.executable, "-c", code], check=True, env=env, cwd=ROOT)
+
+
+def test_core_does_not_import_the_serving_layer():
+    code = (
+        "import sys, repro_torch.core, repro_torch.core.carry, repro_torch.kernels.ops; "
+        "assert not any(m.startswith('repro_torch.serving') for m in sys.modules), sorted(sys.modules)"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    subprocess.run([sys.executable, "-c", code], check=True, env=env, cwd=ROOT)
+
+
+def test_gather_kernel_wrapper_refuses_cpu_tensors():
+    """``gather_cuda`` launches the kernel or raises: a CPU pool never
+    reaches the plain version through it."""
+    from repro_torch.kernels import paged_gather
+
+    pool = torch.zeros((4, 2, 2, 8), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        paged_gather.gather_cuda(pool, torch.tensor([1, 2], dtype=torch.int32))
 
 
 def test_store_defaults_to_the_card():
@@ -94,3 +114,34 @@ def test_kernels_equal_plain_versions_on_the_card(cuda_device):
     for a, b in zip(range_scan.walk_cuda(st.tree, start, khi, klo, limit=74, max_leaves=4),
                     range_scan.walk_plain(st.tree, start, khi, klo, limit=74, max_leaves=4)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_gather_kernel_equals_plain_version_on_the_card(cuda_device):
+    """Kernel B4 == its plain version bitwise: a bf16 pool at the llama3-405b
+    layer's block (16 x 8 x 128) and an f32 pool (16-byte words), a bf16
+    block of 3 x 5 x 7 = 210 bytes (not a multiple of 16: 2-byte words),
+    each with random slots, the out-of-range edge slots and an empty list."""
+    from repro_torch.kernels import paged_gather
+
+    gen = torch.Generator().manual_seed(6)
+    for shape, dtype in (
+        ((64, 16, 8, 128), torch.bfloat16),
+        ((64, 4, 2, 8), torch.float32),
+        ((33, 3, 5, 7), torch.bfloat16),
+    ):
+        pool = torch.randn(shape, generator=gen).to(dtype).to(cuda_device)
+        N = shape[0]
+        bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+        for idx in (
+            torch.randint(0, N, (100,), generator=gen),
+            torch.tensor([-1, N, N + 3, -N - 1, 2**31 - 1, -(2**31), 0, N - 1]),
+            torch.zeros(0),
+        ):
+            slots = idx.to(torch.int32).to(cuda_device)
+            got = paged_gather.gather(pool, slots)
+            want = paged_gather.gather_plain(pool, slots)
+            torch.cuda.synchronize()
+            assert got.shape == want.shape == (idx.numel(), *shape[1:]) and got.dtype == dtype
+            assert torch.equal(got.view(bits), want.view(bits))
+        assert paged_gather.gather_cuda(pool, slots[:0]).shape == (0, *shape[1:])
