@@ -11,14 +11,17 @@ Phases, one JSON line each (any mismatch raises and exits non-zero):
 2. kernels  — on the main-path store's state after some buffered writes and
                cache admits, each kernel (GET, cache probe P=2 and P=1, range
                walk) against its plain-torch version on the same CUDA tensors:
-               bitwise equality and CUDA-event times (median of 25 launches).
+               bitwise equality and CUDA-event times (median of 25 launches);
+               for GET also the time from a cold L2 (256 MB written before
+               each launch) and the launch plan of the wave.
 3. main     — the single-store main path at a deployment's size: 50M sparse
                keys (the service config's and the paper's Table-1 scale),
                default tree/cache configs, YCSB-B waves (95% GET at zipf 0.99,
                5% UPDATE), a DELETE wave, RANGE waves (limit 10, a repeat for
                anchor-cache hits, limit 100 at one leaf per round), flush.
                Every GET and RANGE answer is checked against a numpy oracle,
-               and the launch counters of B1-B3 must advance.
+               and the launch counters of B1-B3 must advance.  Prints the
+               tree's inner nodes per level (what GET could stage).
 4. parity   — the same seeded op stream on a 200k-key store on the card and
                on the CPU: responses and final state tensors identical.
 5. paged    — the paged KV cache path at one llama3-405b attention layer's
@@ -32,11 +35,14 @@ Phases, one JSON line each (any mismatch raises and exits non-zero):
                K/V, slot lists against the slots the appends took; a release
                and a re-append into the freed blocks follow.  Kernels B1-B3
                are held bitwise against their plain versions on the page
-               table's state at the path's 1-request shapes.  Kernel B4 must
-               have run on the path; it is then held against its plain
-               version bitwise and timed at two shapes (one sequence's slot
-               list, 16384 random slots of the pool).  It is checked here and
-               not in phase 2 because its first shape comes from this path.
+               table's state at the path's 1-request shapes (GET also from a
+               cold L2).  Kernel B4 must have run on the path, once per attend
+               for K and V together; it is then held bitwise against its plain
+               versions and timed, one pool and the K and V pair, warm and
+               from a cold L2, beside ``index_select`` (once and twice), at
+               three shapes: one sequence's slot list (fewer slots than SMs),
+               1024 and 16384 random slots.  It is checked here and not in
+               phase 2 because its first shape comes from this path.
 
 Then the kernels' summary line and, last, ``{"ok": true, "device": ...}``.
 Exits non-zero without printing a result when CUDA is absent or when the
@@ -72,7 +78,9 @@ PAGED_DECODE = (128, 512)  # decode steps per sequence (one append + one attend)
 PAGED_REAPPEND = 256  # tokens appended after two releases: fits their blocks
 PAGED_BG_FILL = 0.875  # the pool share other sequences' pages hold
 PAGED_BG_BLOCKS = (256, 768)  # their blocks each: 4k-12k tokens
-GATHER_RANDOM = 16384  # B4's second shape: 512 MiB read and 512 MiB written
+GATHER_LONG = 1024  # B4 at a slot list longer than the card's 132 SMs
+GATHER_RANDOM = 16384  # B4's largest shape: 512 MiB read and 512 MiB written per pool
+L2_FLUSH_BYTES = 256 * 2**20  # written before each cold-L2 call: more than the 50 MB L2
 ATTEND_TOL = 1e-4  # paged vs dense on the same bf16 K/V: f32 summation order only
 
 
@@ -92,11 +100,17 @@ def _setup():
     return torch
 
 
-def time_ms(torch, fn, reps: int = 25, warm: int = 3) -> float:
+_L2_FLUSH = []  # a buffer larger than the card's 50 MB L2, made at first use
+
+
+def time_ms(torch, fn, reps: int = 25, warm: int = 3, cold: bool = False) -> float:
     """Median device time of one call (CUDA events), after warm-up.  Each
     call is queued behind a ~20 ms device sleep, so the host has enqueued
     every launch of the call before the first event fires: the time is the
-    device's, not the host's launch overhead."""
+    device's, not the host's launch overhead.  ``cold``: before each call,
+    256 MB are written, so that the call finds none of its data in the L2."""
+    if cold and not _L2_FLUSH:
+        _L2_FLUSH.append(torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device="cuda"))
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
@@ -104,6 +118,8 @@ def time_ms(torch, fn, reps: int = 25, warm: int = 3) -> float:
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if cold:
+            _L2_FLUSH[0].fill_(len(times))
         torch.cuda._sleep(40_000_000)
         a.record()
         fn()
@@ -239,6 +255,27 @@ def walk_bytes_ops(torch, tree, visited, L, max_leaves):
     nbytes = B * 12 + 12 * live.numel() + 16 * counts + B * (16 * L + 8 + 4 * max_leaves)
     nops = 6 * int(tree.leaf_count[visited[visited >= 0].long()].long().sum()) + B * max_leaves * 16
     return nbytes, nops
+
+
+def get_plan(torch, st, B: int) -> dict:
+    """The launch plan kernel B1 takes for a wave of ``B`` requests on ``st``."""
+    from repro_torch.kernels import build, traverse
+
+    plan = traverse.get_plan(B, st.cfg.eps_inner, st.cfg.eps_leaf,
+                             build.sm_count(torch.cuda.current_device()), traverse._ctas_per_sm)
+    return plan._asdict()
+
+
+def inner_nodes_per_level(img) -> list:
+    """Inner nodes of the host tree image per level, root first."""
+    levels = [[img.root]] if img.depth > 1 else []
+    while levels and len(levels) < img.depth - 1:
+        nxt = []
+        for node in levels[-1]:
+            for s in range(int(img.node_nseg[node])):
+                nxt += img.pivot_child[img.node_seg_slot[node, s], : img.node_seg_count[node, s]].tolist()
+        levels.append(nxt)
+    return [len(level) for level in levels]
 
 
 # ------------------------------------------------- kernels B1-B3 on a store
@@ -443,7 +480,7 @@ def paged_phase(torch, dev, kernels) -> None:
     launches = dict(build.launches)
     for k in ("get", "cache_probe_p2", "cache_probe_p1", "range_walk", "paged_gather"):
         assert launches[k] > 0, f"kernel {k} was not launched on the paged path"
-    assert launches["paged_gather"] == 2 * (n_att + 1), "one K and one V gather per attend"
+    assert launches["paged_gather"] == n_att + 1, "one gather of K and V per attend"
     peak = torch.cuda.max_memory_allocated() - base
 
     # -- checks: slot lists, slot reuse, every attend against the dense K/V
@@ -478,6 +515,9 @@ def paged_phase(torch, dev, kernels) -> None:
     for name, (kern, plain, *_rest) in kernel_cases(torch, cache.table, q, n_blk + ml * cache.table.cfg.ib_cap, ml).items():
         max_abs_err(torch, name, kern(), plain())
         table_kernels[name] = {"equal": True, "ms": time_ms(torch, kern), "plain_ms": time_ms(torch, plain)}
+        if name == "get":
+            table_kernels[name]["cold_ms"] = time_ms(torch, kern, cold=True)
+            table_kernels[name]["plan"] = get_plan(torch, cache.table, 1)
 
     # -- where one decode step's time goes, on the longest live sequence
     key = np.array([page_key(longest, 0)], dtype=np.uint64)
@@ -493,7 +533,7 @@ def paged_phase(torch, dev, kernels) -> None:
         range_s.append(time.perf_counter() - t)
     sl = torch.from_numpy(slots_np).to(dev)
     gk, gv, n_live = cache.gather(longest)
-    gather_ms = time_ms(torch, lambda: (ops.paged_gather(cache.pool_k, sl), ops.paged_gather(cache.pool_v, sl)))
+    gather_ms = time_ms(torch, lambda: ops.paged_gather_kv(cache.pool_k, cache.pool_v, sl))
     attn_ms = time_ms(torch, lambda: decode_attention(qs[0][None, None], gk[None], gv[None], n_live))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -532,38 +572,62 @@ def paged_phase(torch, dev, kernels) -> None:
         "seconds": time.perf_counter() - t_phase,
     })
 
-    # -- kernel B4 against its plain version and index_select, at two shapes
-    rpool = torch.empty_like(cache.pool_k).normal_(generator=gen)
-    random_slots = torch.from_numpy(rng.choice(NB, GATHER_RANDOM, replace=False).astype(np.int32)).to(dev)
+    # -- kernel B4 against its plain versions and index_select: one pool and
+    # the K and V pair, at the path's slot list (fewer slots than SMs), at a
+    # longer random list and at 16384 random slots of random pools
+    gen_pools = [torch.empty_like(cache.pool_k).normal_(generator=gen) for _ in range(2)]
     block_bytes = cache.pool_k[0].numel() * cache.pool_k.element_size()
-    for shape, pool, slots in (("path", cache.pool_k, sl), ("random", rpool, random_slots)):
-        got, want = paged_gather.gather_cuda(pool, slots), paged_gather.gather_plain(pool, slots)
+    shapes = (
+        ("path", (cache.pool_k, cache.pool_v), sl),
+        ("long", gen_pools, torch.from_numpy(rng.choice(NB, GATHER_LONG, replace=False).astype(np.int32)).to(dev)),
+        ("random", gen_pools, torch.from_numpy(rng.choice(NB, GATHER_RANDOM, replace=False).astype(np.int32)).to(dev)),
+    )
+    for shape, (pk, pv), slots in shapes:
         clamped = paged_gather.clamp_slots(slots, NB)
-        lib = pool.index_select(0, clamped)
+        got = [paged_gather.gather_cuda(pk, slots), *paged_gather.gather_kv_cuda(pk, pv, slots)]
+        want = [paged_gather.gather_plain(pk, slots), *paged_gather.gather_kv_plain(pk, pv, slots)]
+        lib = [pk.index_select(0, clamped), pk.index_select(0, clamped), pv.index_select(0, clamped)]
         torch.cuda.synchronize()
-        assert got.shape == want.shape and got.dtype == want.dtype
-        gerr = float((got.float() - want.float()).abs().max())
-        if not (torch.equal(got.view(torch.int16), want.view(torch.int16))
-                and torch.equal(lib.view(torch.int16), want.view(torch.int16))):
-            raise AssertionError(f"kernel paged_gather disagrees with its plain version ({shape}, {gerr})")
+        gerr = 0.0
+        for a, b, c in zip(got, want, lib, strict=True):
+            assert a.shape == b.shape and a.dtype == b.dtype
+            gerr = max(gerr, float((a.float() - b.float()).abs().max()))
+            if not (torch.equal(a.view(torch.int16), b.view(torch.int16)) and torch.equal(c.view(torch.int16), b.view(torch.int16))):
+                raise AssertionError(f"kernel paged_gather disagrees with its plain version ({shape}, {gerr})")
         del got, want, lib
-        ms = time_ms(torch, lambda: paged_gather.gather_cuda(pool, slots))
-        plain_ms = time_ms(torch, lambda: paged_gather.gather_plain(pool, slots))
-        library_ms = time_ms(torch, lambda: pool.index_select(0, clamped))
+        one = lambda: paged_gather.gather_cuda(pk, slots)  # noqa: E731
+        pair = lambda: paged_gather.gather_kv_cuda(pk, pv, slots)  # noqa: E731
+        t = {
+            "ms": time_ms(torch, one), "plain_ms": time_ms(torch, lambda: paged_gather.gather_plain(pk, slots)),
+            "library_ms": time_ms(torch, lambda: pk.index_select(0, clamped)),
+            "cold_ms": time_ms(torch, one, cold=True),
+            "library_cold_ms": time_ms(torch, lambda: pk.index_select(0, clamped), cold=True),
+            "pair_ms": time_ms(torch, pair),
+            "pair_plain_ms": time_ms(torch, lambda: paged_gather.gather_kv_plain(pk, pv, slots)),
+            "pair_library_ms": time_ms(torch, lambda: (pk.index_select(0, clamped), pv.index_select(0, clamped))),
+            "pair_cold_ms": time_ms(torch, pair, cold=True),
+            "pair_library_cold_ms": time_ms(torch, lambda: (pk.index_select(0, clamped), pv.index_select(0, clamped)), cold=True),
+        }
         n = int(slots.numel())
         nbytes = 2 * n * block_bytes + 4 * n
         bound_ms, bound_by = bound(nbytes, 0)
+        pair_bound_ms = bound(2 * nbytes - 4 * n, 0)[0]
+        plans = {k: paged_gather.launch_plan(block_bytes, n, k, build.sm_count(dev.index or 0), True)._asdict()
+                 for k in (1, 2)}
         emit({"phase": "kernel", "kernel": "paged_gather", "equal": True, "max_abs_err": gerr, "shape": shape, "slots": n,
-              "block_bytes": block_bytes, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-              "bytes": nbytes, "bound_ms": bound_ms, "bound_by": bound_by, "gb_per_s": nbytes / ms / 1e6})
+              "block_bytes": block_bytes, **t, "bytes": nbytes, "bound_ms": bound_ms, "bound_by": bound_by,
+              "pair_bound_ms": pair_bound_ms, "gb_per_s": nbytes / t["ms"] / 1e6,
+              "pair_gb_per_s": (2 * nbytes - 4 * n) / t["pair_ms"] / 1e6, "plan": plans[1], "pair_plan": plans[2]})
         if shape == "path":
             kernels["paged_gather"] = {
                 "name": "paged_gather", "route": "cuda", "source": "src/repro_torch/csrc/paged_gather.cu",
                 "replaces": "src/repro/kernels/paged_gather.py:21", "launches": launches["paged_gather"],
-                "max_abs_err": gerr, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": library_ms,
+                "max_abs_err": gerr, **{k: t[k] for k in ("ms", "plain_ms")}, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": t["library_ms"],
+                **{k: t[k] for k in ("cold_ms", "pair_ms", "pair_plain_ms", "pair_library_ms", "pair_cold_ms")},
+                "pair_bound_ms": pair_bound_ms,
             }
-    del layer, cache, rpool, kv
+    del layer, cache, gen_pools, kv
     torch.cuda.empty_cache()
 
 
@@ -648,8 +712,12 @@ def main() -> int:
             "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         }
+        extra = {}
+        if name == "get":  # B1: also from a cold L2, and the launch plan the wave got
+            kernels[name]["cold_ms"] = extra["cold_ms"] = time_ms(torch, kern, cold=True)
+            extra["plan"] = get_plan(torch, st, W)
         emit({"phase": "kernel", "kernel": name, "equal": True, "ms": ms, "plain_ms": plain_ms,
-              "bytes": nbytes, "ops": nops, "bound_ms": bound_ms, "bound_by": bound_by,
+              "bytes": nbytes, "ops": nops, "bound_ms": bound_ms, "bound_by": bound_by, **extra,
               "shapes": {"requests": W, "depth": st.depth, "L": L if name == "range_walk" else None}})
     del got, want
 
@@ -703,6 +771,7 @@ def main() -> int:
     assert stats.cache_hits > s0.cache_hits and stats.scan_hits > s0.scan_hits
     emit({
         "phase": "main", "keys": N_KEYS, "wave": W, "depth": st.depth,
+        "inner_nodes_per_level": inner_nodes_per_level(st.image),
         "leaves_pool": int(st.tree.leaf_count.shape[0]), "slots_pool": int(st.tree.hbm_keys.shape[0]),
         "gen_s": gen_s, "store_build_s": store_build_s,
         "get_mops": get_n / get_s / 1e6, "range_mops": range_n / range_s / 1e6,

@@ -14,6 +14,7 @@ this machine may have no ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -121,6 +122,12 @@ def function(name: str, symbol: str, *, n_ptrs: int, n_ints: int):
         fn.restype = ctypes.c_int
         _functions[key] = fn
     return _functions[key]
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def pointers(tensors, device):

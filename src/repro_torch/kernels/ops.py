@@ -4,7 +4,7 @@ package's ``kernels/ops.py``.
 Every op dispatches on the device of its tensors: CUDA tensors go to the
 kernel (the wrapper launches it or raises), CPU tensors to the kernel's
 plain-torch version.  The store calls these ops for GET, the cache probes
-and RANGE, and the paged KV cache calls ``paged_gather``, so on the card the
+and RANGE, and the paged KV cache calls ``paged_gather_kv``, so on the card the
 kernels carry both paths.
 
 ``range_scan_loop`` always runs kernel walk -> plain-torch insert-buffer
@@ -48,6 +48,12 @@ def paged_gather(pool, slots):
     """KV blocks ``pool[slots]`` (kernel B4): a fresh (n, bs, H, hd) buffer;
     zeros of shape (0, bs, H, hd) for an empty slot list."""
     return _paged.gather(pool, slots)
+
+
+def paged_gather_kv(pool_k, pool_v, slots):
+    """``paged_gather`` of a K and a V pool by one slot list, in one launch
+    of kernel B4: (k, v)."""
+    return _paged.gather_kv(pool_k, pool_v, slots)
 
 
 def _empty_scan(khi, klo):

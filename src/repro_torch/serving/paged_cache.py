@@ -9,7 +9,8 @@ The page table is an *ordered* map
 held in the port's ``DPAStore``: appending into an existing block is a point
 GET, starting a block is a PUT, and collecting a sequence's blocks in order
 is a RANGE.  The block pools are torch tensors on the store's device; the
-listed blocks are copied out by kernel B4 (``kernels/paged_gather.py``).
+listed blocks of both pools are copied out by one launch of kernel B4
+(``kernels/paged_gather.py``).
 
 Unlike the reference, which rebuilds its immutable pool on every write
 (``.at[slot, offset].set``), the port writes the pools in place; the gather
@@ -191,7 +192,6 @@ class PagedCache:
         Returns (k, v, valid_len)."""
         slots = torch.from_numpy(self.lookup_slots(seq_id)).to(self.device)
         n = self.seq_len.get(seq_id, 0)
-        k = ops.paged_gather(self.pool_k, slots)
-        v = ops.paged_gather(self.pool_v, slots)
+        k, v = ops.paged_gather_kv(self.pool_k, self.pool_v, slots)
         S = slots.shape[0] * self.block_size
         return k.reshape(S, *k.shape[2:]), v.reshape(S, *v.shape[2:]), n

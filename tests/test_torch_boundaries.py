@@ -28,7 +28,7 @@ def _imported_roots(path: Path):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "chip_designs.py"]
     assert len(files) > 10
     for f in files:
         bad = {m for m in _imported_roots(f) if m in ("jax", "jaxlib", "repro")}
@@ -145,3 +145,105 @@ def test_gather_kernel_equals_plain_version_on_the_card(cuda_device):
             assert got.shape == want.shape == (idx.numel(), *shape[1:]) and got.dtype == dtype
             assert torch.equal(got.view(bits), want.view(bits))
         assert paged_gather.gather_cuda(pool, slots[:0]).shape == (0, *shape[1:])
+
+
+_DATASETS = ["sparse", "sparseBig", "dense4x", "wiki", "amzn", "osmc", "face"]
+# (keys, eps, ib_cap): a depth-2 tree; a deeper one (osmc reaches depth 4);
+# the page table's ib_cap 32; wide windows (more than one pass of lanes);
+# and far queries, whose leaf predictions pass 2^31 on osmc
+_GET_SHAPES = {
+    "small": (3000, (4, 8), 16),
+    "deep": (30000, (1, 2), 16),
+    "ib32": (20000, (4, 8), 32),
+    "wide": (3000, (16, 16), 16),
+    "far": (3000, (16, 16), 16),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", sorted(_GET_SHAPES))
+@pytest.mark.parametrize("dataset", _DATASETS)
+def test_get_kernel_equals_plain_on_every_dataset(cuda_device, dataset, shape):
+    """Kernel B1 == ``get_plain`` bitwise on a churned tree (buffered PUTs of
+    new and existing keys and DELETEs left in the insert buffers), at every
+    depth the trees reach here and at depth 1 (the root set to a leaf), for
+    1-request and 300-request waves (a warp per request), and waves of 40000
+    and 300000 requests (a thread per request)."""
+    from repro_torch.core import DPAStore, TreeConfig, datasets
+    from repro_torch.kernels import build, traverse
+
+    n, eps, cap = _GET_SHAPES[shape]
+    keys = datasets.DATASETS[dataset](n, seed=3 if shape == "far" else 11)
+    st = DPAStore(keys, keys ^ np.uint64(0x5A5A), TreeConfig(eps_inner=eps[0], eps_leaf=eps[1], ib_cap=cap,
+                                                            growth=20.0), cache_cfg=None, device=cuda_device)
+    rng = np.random.default_rng(5)
+    newk = rng.integers(0, 2**63, 400, dtype=np.uint64)
+    st.put(newk, newk + np.uint64(77))
+    st.put(keys[::9], keys[::9] + np.uint64(1))
+    st.delete(np.concatenate([keys[::13], newk[::5]]))
+    if shape == "far":
+        q = rng.integers(0, 2**64, 512, dtype=np.uint64)
+    else:
+        q = np.concatenate([rng.choice(keys, 24000), rng.choice(newk, 4000),
+                            rng.integers(0, 2**64, 12000, dtype=np.uint64)])
+    if shape == "deep" and dataset == "osmc":
+        assert st.depth == 4
+    if shape == "far" and dataset == "osmc":  # the saturating float->int32 cast is exercised
+        from repro_torch.core import lookup
+        from repro_torch.core.keys import u32
+
+        kh, kl = st._limbs(q)
+        leaf = lookup.traverse(st.tree, kh, kl, depth=st.depth, eps_inner=eps[0]).long()
+        a = u32(st.tree.leaf_anchor[leaf])
+        assert bool((lookup._predict(st.tree.leaf_slope[leaf], a[:, 0], a[:, 1], u32(kh), u32(kl)) >= 2.0**31).any())
+    ib_used = int((st.ib.count > 0).sum())
+    assert ib_used > 0, "no buffered writes left in the insert buffers"
+    eps_kw = dict(eps_inner=eps[0], eps_leaf=eps[1])
+    leaf0 = st.tree.root.new_tensor(st.image.first_leaf())
+    big = 300_000
+    for tree, depth in ((st.tree, st.depth), (st.tree._replace(root=leaf0), 1)):
+        for wave in (q[:1], q[:300], q, np.resize(q, big)):
+            khi, klo = st._limbs(wave)
+            got = traverse.get_cuda(tree, st.ib, khi, klo, depth=depth, **eps_kw)
+            want = traverse.get_plain(tree, st.ib, khi, klo, depth=depth, **eps_kw)
+            torch.cuda.synchronize()
+            for a, b, name in zip(got, want, ("vhi", "vlo", "found")):
+                assert torch.equal(a, b), f"{name}: depth {depth}, {wave.size} requests"
+            assert shape == "far" or depth == 1 or wave.size == 1 or bool(got[2].any()), "no request found"
+    sm = build.sm_count(cuda_device.index or 0)
+    plans = [traverse.get_plan(m, *eps, sm, traverse._ctas_per_sm).warp for m in (1, 300, q.size, big)]
+    assert plans == [True, True, q.size < 1000, False], plans  # both kernels ran
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [59, 1000])
+@pytest.mark.parametrize(
+    "block,dtype,offset",
+    [((16, 8, 128), torch.bfloat16, 0), ((16, 8, 128), torch.bfloat16, 4), ((3, 5, 7), torch.bfloat16, 0),
+     ((4, 2, 8), torch.float32, 0)],
+)
+def test_gather_kv_kernel_equals_plain_on_the_card(cuda_device, block, dtype, offset, n):
+    """Kernel B4 on one pool and on a K and V pair == the plain versions
+    bitwise: 32 KiB bf16 blocks (the bulk path, and pools 8 bytes off a
+    16-byte boundary, the word path), 210-byte bf16 blocks (2-byte words)
+    and 256-byte f32 blocks, with slot lists shorter and longer than the
+    SM count, random slots and the out-of-range edge slots."""
+    from repro_torch.kernels import build, paged_gather
+
+    N = 1100
+    gen = torch.Generator().manual_seed(7)
+    size = N * int(np.prod(block))
+    pools = [torch.randn(size + offset, generator=gen).to(dtype).to(cuda_device)[offset:].view(N, *block)
+             for _ in range(2)]
+    idx = torch.randint(0, N, (n,), generator=gen)
+    idx[:6] = torch.tensor([-1, N, N + 3, -N - 1, 2**31 - 1, -(2**31)])
+    slots = idx.to(torch.int32).to(cuda_device)
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    before = build.launches["paged_gather"]
+    got = [paged_gather.gather_cuda(pools[0], slots), *paged_gather.gather_kv_cuda(*pools, slots)]
+    want = [paged_gather.gather_plain(pools[0], slots), *paged_gather.gather_kv_plain(*pools, slots)]
+    torch.cuda.synchronize()
+    assert build.launches["paged_gather"] == before + 2  # the pair is one launch
+    for a, b in zip(got, want, strict=True):
+        assert a.shape == b.shape == (n, *block) and a.dtype == dtype
+        assert torch.equal(a.view(bits), b.view(bits))

@@ -25,7 +25,7 @@ from repro_torch.core import carry, hotcache, lookup, scancache
 from repro_torch.core.hotcache import CacheConfig
 from repro_torch.core.keys import u32
 from repro_torch.core.scancache import ScanCacheConfig
-from repro_torch.kernels import cache_probe, ops, range_scan
+from repro_torch.kernels import cache_probe, ops, range_scan, traverse
 
 
 def _mk(n, dataset=sparse, eps=(4, 8), seed=7, churn=0):
@@ -121,6 +121,33 @@ def test_get_far_queries_hit_the_saturating_cast():
     root_t = tree.root.expand(q.size)
     root_j = jnp.broadcast_to(st.tree.root, jh.shape)
     _eq(lookup.route_one_level(tree, root_t, th, tl, 16), jlookup.route_one_level(st.tree, root_j, jh, jl, 16))
+
+
+@pytest.mark.parametrize("B", [1, 200, 8448, 65536, 262144])
+@pytest.mark.parametrize("eps", [(4, 8), (16, 16), (1, 2), (70, 8)])
+@pytest.mark.parametrize("ctas", [8, 6])
+def test_get_launch_plan_is_valid(ctas, eps, B):
+    """Kernel B1's launch plan: every request owned by exactly one warp (or
+    thread) of one CTA; a warp per request exactly when the whole wave fits
+    on the card at once that way and each window with the key before it
+    fits the warp's passes (so always for the page table's 1-request wave),
+    else a thread per request.  ``ctas``: CTAs of 256 threads an SM holds
+    (8 = every thread slot)."""
+    sm = 132
+    occupancy = lambda warp, threads: ctas * 256 // threads  # noqa: E731
+    plan = traverse.get_plan(B, *eps, sm, occupancy)
+    fits = 2 * max(eps) + 3 <= 32 * traverse.MAX_PASSES
+    per_cta = plan.threads // 32 if plan.warp else plan.threads
+    assert plan.threads % 32 == 0 and plan.threads <= traverse.WARP_CTA
+    assert plan.grid == -(-B // per_cta)
+    t = min(traverse.WARP_CTA, 32 * B)  # the warp kernel's CTA for this wave
+    assert plan.warp == (fits and B <= sm * occupancy(True, t) * (t // 32))
+    if B == 1:
+        assert plan.warp == fits and plan.grid == 1
+    owner = np.zeros(plan.grid * per_cta, dtype=np.int64)  # the kernel: i = cta * per_cta + unit
+    for cta in range(plan.grid):
+        owner[cta * per_cta : (cta + 1) * per_cta] += 1
+    assert (owner[:B] == 1).all()
 
 
 # ------------------------------------------------------- B2: cache probe

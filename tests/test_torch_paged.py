@@ -1,7 +1,8 @@
 """Port paged KV cache path == JAX paged KV cache path.
 
-Kernel B4's plain version against JAX ``gather_ref`` and ``gather_pallas``
-(interpret mode), ``decode_attention``, ``PagedCache`` over one seeded
+Kernel B4's plain versions (one pool, and the K and V pair) against JAX
+``gather_ref`` and ``gather_pallas`` (interpret mode), B4's launch plan,
+``decode_attention``, ``PagedCache`` over one seeded
 interleaved append stream, ``PagedAttentionLayer.attend`` and the carry of a
 whole cache, all at a small size (block_size 4, 2 KV heads, head_dim 8,
 64 blocks, bf16 pools).  Inputs are made with numpy from a seed and fed to
@@ -64,26 +65,72 @@ def _jax_to_numpy(jpc):
 _EDGE = [-1, NB, NB + 3, -NB - 1, 2**31 - 1, -(2**31)]
 
 
+@pytest.mark.parametrize("pools", ["one", "kv"])
 @pytest.mark.parametrize("slots", ["random", "edges", "empty"])
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
-def test_gather_plain_matches_jax(dtype, slots):
+def test_gather_plain_matches_jax(dtype, slots, pools):
+    """One pool through ``gather`` (JAX's ``gather``), or a K and V pair
+    through ``gather_kv`` (JAX's ``gather`` applied to each pool)."""
     rng = np.random.default_rng(1)
-    pool = rng.normal(size=(NB, BS, HKV, HD)).astype(np.float32)
+    np_pools = [rng.normal(size=(NB, BS, HKV, HD)).astype(np.float32) for _ in range(1 if pools == "one" else 2)]
     if dtype == "bf16":
-        pool = pool.astype(ml_dtypes.bfloat16)
+        np_pools = [p.astype(ml_dtypes.bfloat16) for p in np_pools]
     idx = {
         "random": rng.integers(0, NB, 37),
         "edges": np.array(_EDGE + [3, 0, NB - 1]),
         "empty": np.zeros(0),
     }[slots].astype(np.int32)
-    tpool = paged_cache._pool_from_numpy(pool, "cpu")
-    got = paged_gather.gather(tpool, torch.from_numpy(idx))
-    jp, js = jnp.asarray(pool), jnp.asarray(idx)
-    assert got.shape == (idx.size, BS, HKV, HD) and got.dtype == tpool.dtype
-    np.testing.assert_array_equal(_bits(got), _bits(jgather.gather(jp, js, impl="ref")))
-    if idx.size:
-        np.testing.assert_array_equal(_bits(got), _bits(jgather.gather_ref(jp, js)))
-        np.testing.assert_array_equal(_bits(got), _bits(jgather.gather_pallas(jp, js, interpret=True)))
+    tpools = [paged_cache._pool_from_numpy(p, "cpu") for p in np_pools]
+    ts = torch.from_numpy(idx)
+    got = [paged_gather.gather(tpools[0], ts)] if pools == "one" else list(paged_gather.gather_kv(*tpools, ts))
+    if pools == "kv":
+        for g, want in zip(got, paged_gather.gather_kv_plain(*tpools, ts)):
+            assert torch.equal(g, want)
+    js = jnp.asarray(idx)
+    for g, pool, tpool in zip(got, np_pools, tpools, strict=True):
+        jp = jnp.asarray(pool)
+        assert g.shape == (idx.size, BS, HKV, HD) and g.dtype == tpool.dtype
+        np.testing.assert_array_equal(_bits(g), _bits(jgather.gather(jp, js, impl="ref")))
+        if idx.size:
+            np.testing.assert_array_equal(_bits(g), _bits(jgather.gather_ref(jp, js)))
+            np.testing.assert_array_equal(_bits(g), _bits(jgather.gather_pallas(jp, js, interpret=True)))
+
+
+@pytest.mark.parametrize("n_pools", [1, 2])
+@pytest.mark.parametrize("n", [1, 7, 59, 131, 133, 1000, 16384])
+@pytest.mark.parametrize("block_bytes,aligned", [(32768, True), (32768, False), (210, False), (1, False)])
+def test_gather_launch_plan_covers_every_byte_once(block_bytes, aligned, n, n_pools):
+    """Kernel B4's launch plan, read the way the kernel reads it: CTA c takes
+    items c, c + grid, ...; item i is chunk ``i % chunks`` of listed slot
+    ``(i // chunks) % n`` of pool ``i // (chunks * n)``, the bytes
+    [chunk * c, min(chunk * (c + 1), block_bytes)).  Every byte of every
+    listed block of every pool is copied exactly once; the bulk path only for
+    aligned lists that are in flight at once."""
+    sm = 132
+    plan = paged_gather.launch_plan(block_bytes, n, n_pools, sm, aligned)
+    assert plan.chunk % 16 == 0 and plan.chunk <= paged_gather.CHUNK
+    assert plan.chunks == -(-block_bytes // plan.chunk)
+    assert plan.items == n_pools * n * plan.chunks and 1 <= plan.grid <= plan.items
+    taken = np.concatenate([np.arange(c, plan.items, plan.grid) for c in range(plan.grid)])
+    np.testing.assert_array_equal(np.sort(taken), np.arange(plan.items))  # each item once
+    i = np.arange(plan.items)
+    chunk, j, p = i % plan.chunks, (i // plan.chunks) % n, i // (plan.chunks * n)
+    start = chunk * plan.chunk
+    stop = np.minimum(start + plan.chunk, block_bytes)
+    assert (stop > start).all()
+    order = np.lexsort((start, j, p))
+    same_block = (p[order][1:] == p[order][:-1]) & (j[order][1:] == j[order][:-1])
+    np.testing.assert_array_equal(start[order][1:][same_block], stop[order][:-1][same_block])  # no gap, no overlap
+    firsts, lasts = start[order][np.r_[True, ~same_block]], stop[order][np.r_[~same_block, True]]
+    assert firsts.size == n_pools * n and (firsts == 0).all() and (lasts == block_bytes).all()
+    ring = paged_gather.STAGES * plan.chunk
+    resident = sm * min(paged_gather.CTAS_PER_SM, paged_gather.SMEM_PER_SM // (ring + 1024))
+    assert plan.bulk == (aligned and plan.items <= paged_gather.STAGES * resident)
+    if plan.bulk:  # one-warp CTAs that the SMs hold at once, each streaming <= STAGES items
+        assert plan.threads == 32 and plan.smem == ring <= 227 * 1024
+        assert plan.grid == min(plan.items, resident)
+    else:  # one CTA per item
+        assert plan.threads == paged_gather.WORD_THREADS and plan.smem == 0 and plan.grid == plan.items
 
 
 def test_gather_returns_a_fresh_buffer():
