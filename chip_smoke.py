@@ -12,8 +12,11 @@ Phases, one JSON line each (any mismatch raises and exits non-zero):
                cache admits, each kernel (GET, cache probe P=2 and P=1, range
                walk) against its plain-torch version on the same CUDA tensors:
                bitwise equality and CUDA-event times (median of 25 launches);
-               for GET also the time from a cold L2 (256 MB written before
-               each launch) and the launch plan of the wave.
+               for GET and both probes also the time from a cold L2 (256 MB
+               written before each launch) and the launch plan of the wave;
+               for the probes the wave's Bloom-positive and hit shares and the
+               launch floor (the same timer around ``fill_`` of a 1-element
+               tensor).
 3. main     — the single-store main path at a deployment's size: 50M sparse
                keys (the service config's and the paper's Table-1 scale),
                default tree/cache configs, YCSB-B waves (95% GET at zipf 0.99,
@@ -35,9 +38,10 @@ Phases, one JSON line each (any mismatch raises and exits non-zero):
                K/V, slot lists against the slots the appends took; a release
                and a re-append into the freed blocks follow.  Kernels B1-B3
                are held bitwise against their plain versions on the page
-               table's state at the path's 1-request shapes (GET also from a
-               cold L2).  Kernel B4 must have run on the path, once per attend
-               for K and V together; it is then held bitwise against its plain
+               table's state at the path's 1-request shapes (GET and the
+               probes also from a cold L2, with their plans).  Kernel B4
+               must have run on the path, once per attend for K and V
+               together; it is then held bitwise against its plain
                versions and timed, one pool and the K and V pair, warm and
                from a cold L2, beside ``index_select`` (once and twice), at
                three shapes: one sequence's slot list (fewer slots than SMs),
@@ -230,17 +234,22 @@ def get_bytes_ops(torch, lookup, keys_mod, st, khi, klo):
 
 def probe_bytes_ops(torch, cacheset, keys_mod, cache, tid, khi, klo, cfg, salts, bucket_salt, P):
     """Distinct bytes the probe reads and writes: the requests and their
-    outputs, the Bloom words they test, and — for Bloom-positive requests
-    only — their buckets' keys and flags (hit payloads are not counted, so
-    this bound is slightly low)."""
+    outputs, the Bloom words they test, for Bloom-positive requests their
+    buckets' keys and flags, and for hits the matching way's payload."""
     kh, kl = keys_mod.u32(khi), keys_mod.u32(klo)
     t = tid.long()
     B = khi.shape[0]
     may = cacheset.bloom_may(cache.bloom, t, kh, kl, cfg.bloom_bits, salts)
     n_words = cache.bloom.shape[1]
     words = torch.cat([t * n_words + h // 32 for h in cacheset.bloom_hashes(kh, kl, cfg.bloom_bits, salts)])
-    bucket = t * cfg.n_buckets + cacheset.bucket_of(kh, kl, cfg.n_buckets, bucket_salt)
+    b = cacheset.bucket_of(kh, kl, cfg.n_buckets, bucket_salt)
+    bucket = t * cfg.n_buckets + b
+    bk = keys_mod.u32(cache.bkey[t, b])
+    eq = keys_mod.limb_eq(bk[:, :, 0], bk[:, :, 1], kh[:, None], kl[:, None]) & cache.bvalid[t, b]
+    hit = may & eq.any(dim=1)
+    entry = bucket * cfg.ways + torch.argmax(eq.to(torch.int32), dim=1)
     nbytes = B * (12 + 1 + 4 * P) + 4 * _uniq(torch, words) + cfg.ways * 9 * _uniq(torch, bucket[may])
+    nbytes += 4 * P * _uniq(torch, entry[hit])
     nops = B * 4 * 20 + int(may.sum()) * cfg.ways * 4
     return nbytes, nops
 
@@ -264,6 +273,26 @@ def get_plan(torch, st, B: int) -> dict:
     plan = traverse.get_plan(B, st.cfg.eps_inner, st.cfg.eps_leaf,
                              build.sm_count(torch.cuda.current_device()), traverse._ctas_per_sm)
     return plan._asdict()
+
+
+def probe_wave(torch, st, q, P: int) -> dict:
+    """The plan kernel B2 takes for the probe wave of keys ``q`` on ``st``'s
+    hot-entry (P=2) or scan-anchor (P=1) cache, and the wave's
+    Bloom-positive share."""
+    from repro_torch.core import cacheset, hotcache, scancache
+    from repro_torch.core.keys import u32
+    from repro_torch.kernels import build, cache_probe
+
+    if P == 2:
+        cache, bpay, cfg, salts = st.cache, st.cache.bval, st.cache_cfg, hotcache.SALT_BLOOM
+    else:
+        cache, bpay, cfg, salts = st.scan_cache, st.scan_cache.bleaf[..., None], st.scan_cache_cfg, scancache.SALT_SBLOOM
+    khi, klo = st._limbs(q)
+    tid = hotcache.steer(khi, klo, cfg.n_threads)
+    may = cacheset.bloom_may(cache.bloom, tid, u32(khi), u32(klo), cfg.bloom_bits, salts)
+    aligned = cache_probe.vector_aligned(cache.bkey, bpay, cache.bvalid)
+    plan = cache_probe.probe_plan(q.size, cfg.ways, P, aligned, build.sm_count(torch.cuda.current_device()))
+    return {"plan": plan._asdict(), "bloom_positive": float(may.float().mean())}
 
 
 def inner_nodes_per_level(img) -> list:
@@ -518,6 +547,9 @@ def paged_phase(torch, dev, kernels) -> None:
         if name == "get":
             table_kernels[name]["cold_ms"] = time_ms(torch, kern, cold=True)
             table_kernels[name]["plan"] = get_plan(torch, cache.table, 1)
+        elif name.startswith("cache_probe"):
+            table_kernels[name]["cold_ms"] = time_ms(torch, kern, cold=True)
+            table_kernels[name]["plan"] = probe_wave(torch, cache.table, q, int(name[-1]))["plan"]
 
     # -- where one decode step's time goes, on the longest live sequence
     key = np.array([page_key(longest, 0)], dtype=np.uint64)
@@ -701,7 +733,11 @@ def main() -> int:
     # ---- 2. kernels against their plain versions ---------------------------
     kernels = {}
     L, ML = 10 + 4 * st.cfg.ib_cap, 4
-    for name, (kern, plain, source, replaces, cost) in kernel_cases(torch, st, draw(W), L, ML).items():
+    one = torch.zeros(1, device=dev)
+    floor = {"launch_floor_ms": time_ms(torch, lambda: one.fill_(0)),
+             "launch_floor_cold_ms": time_ms(torch, lambda: one.fill_(0), cold=True)}
+    q2 = draw(W)
+    for name, (kern, plain, source, replaces, cost) in kernel_cases(torch, st, q2, L, ML).items():
         got, want = kern(), plain()
         err = max_abs_err(torch, name, got, want)
         ms, plain_ms = time_ms(torch, kern), time_ms(torch, plain)
@@ -716,6 +752,10 @@ def main() -> int:
         if name == "get":  # B1: also from a cold L2, and the launch plan the wave got
             kernels[name]["cold_ms"] = extra["cold_ms"] = time_ms(torch, kern, cold=True)
             extra["plan"] = get_plan(torch, st, W)
+        elif name.startswith("cache_probe"):  # B2: the same, the wave's shares and the launch floor
+            extra = {"cold_ms": time_ms(torch, kern, cold=True), **probe_wave(torch, st, q2, int(name[-1])),
+                     "hit": float(got[0].float().mean()), **floor}
+            kernels[name].update(extra)
         emit({"phase": "kernel", "kernel": name, "equal": True, "ms": ms, "plain_ms": plain_ms,
               "bytes": nbytes, "ops": nops, "bound_ms": bound_ms, "bound_by": bound_by, **extra,
               "shapes": {"requests": W, "depth": st.depth, "L": L if name == "range_walk" else None}})

@@ -7,13 +7,17 @@ entry carries: the GET hot-entry cache a 2-word value (``probe``, P=2), the
 RANGE scan-anchor cache a 1-word leaf id (``anchor_probe``, P=1).
 ``generic_probe`` launches the CUDA kernel (``csrc/cache_probe.cu``) for
 CUDA tensors and runs ``probe_plain`` for CPU tensors.  Outputs: ``hit``
-(B,) bool and the payload (B, P), zeros on a miss.
+(B,) bool and the payload (B, P), zeros on a miss.  ``probe_plan`` picks
+the kernel's shape for a wave: for the caches' 4-way layout, 16-byte loads
+of the bucket, all issued at once for a small wave and only as far as the
+Bloom test and the key compare need them for a large one; 32-bit loads for
+any other layout.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import torch
 
@@ -65,9 +69,77 @@ def generic_probe(
     return probe_cuda(bloom, bkey, bpay, bvalid, tid, khi, klo, **kw)
 
 
+# The kernel's shapes (csrc/cache_probe.cu ``Design``) and its CTA size.
+DESIGNS = {"loop": 0, "vector": 1, "gated": 2, "late": 3, "lean": 4, "generic": 5}
+THREADS = 128
+VECTOR_WAYS = 4  # "vector", "gated", "late" and "lean" read a 4-way bucket as 16-byte words
+
+
+class ProbePlan(NamedTuple):
+    design: str  # a key of DESIGNS
+    threads: int  # per CTA, one request per thread
+    grid: int  # CTAs
+
+
+def serves(design: str, ways: int, P: int, aligned: bool) -> bool:
+    """Whether ``design`` takes a cache of ``ways`` ways and ``P`` payload
+    words; ``aligned``: ``vector_aligned`` holds for its arrays."""
+    if design == "generic":
+        return True
+    if design == "loop":  # reads a key as one 8-byte word
+        return aligned
+    return aligned and ways == VECTOR_WAYS and P in (1, 2)
+
+
+def shape(design: str, B: int, threads: int = THREADS) -> ProbePlan:
+    """The grid of ``design`` for a wave of ``B`` requests."""
+    return ProbePlan(design, threads, -(-B // threads))
+
+
+def probe_plan(B: int, ways: int, P: int, aligned: bool, sm_count: int) -> ProbePlan:
+    """Kernel shape of a probe wave of ``B`` requests on a card of
+    ``sm_count`` SMs.  Where the layout allows 16-byte loads of the bucket
+    (the caches' 4 ways, P = 1 or 2, ``aligned``): a wave of at most one
+    CTA per SM waits on its chain of dependent loads, so every load is
+    issued at once ("vector"); a larger wave waits on the loads its warps
+    issue, so the bucket is read only for a Bloom-positive request, and the
+    flags and payload only once a key matches ("lean").  Any other layout
+    takes the generic 32-bit shape."""
+    if not serves("vector", ways, P, aligned):
+        return shape("generic", B)
+    return shape("vector" if B <= sm_count * THREADS else "lean", B)
+
+
+def vector_aligned(bkey, bpay, bvalid) -> bool:
+    """The vector shapes read a bucket's keys and payloads as 16-byte words
+    and its valid flags as one 4-byte word: each array's base must allow it
+    (every bucket then starts at a multiple of those widths)."""
+    return bkey.data_ptr() % 16 == 0 and bpay.data_ptr() % 16 == 0 and bvalid.data_ptr() % 4 == 0
+
+
 def probe_cuda(
     bloom, bkey, bpay, bvalid, tid, khi, klo, *, bloom_bits, n_buckets, salts_bloom, salt_bucket
 ):
+    """Launch the kernel in the shape ``probe_plan`` picks for the wave;
+    raises on operands the kernel does not take."""
+    if not khi.is_cuda:
+        raise ValueError("the probe kernel takes CUDA tensors")
+    W, P = bpay.shape[2:]
+    aligned = vector_aligned(bkey, bpay, bvalid)
+    plan = probe_plan(khi.shape[0], W, P, aligned, build.sm_count(khi.device.index or 0))
+    return launch(
+        bloom, bkey, bpay, bvalid, tid, khi, klo, plan=plan, bloom_bits=bloom_bits,
+        n_buckets=n_buckets, salts_bloom=salts_bloom, salt_bucket=salt_bucket,
+    )
+
+
+def launch(
+    bloom, bkey, bpay, bvalid, tid, khi, klo, *, plan: ProbePlan, bloom_bits, n_buckets, salts_bloom,
+    salt_bucket,
+):
+    """Launch the kernel in the shape ``plan``."""
+    if not khi.is_cuda:
+        raise ValueError("the probe kernel takes CUDA tensors")
     if len(salts_bloom) != 3:
         raise ValueError("the probe kernel takes exactly three Bloom salts")
     T, NB, W, P = bpay.shape
@@ -75,14 +147,25 @@ def probe_cuda(
         raise ValueError("cache arrays disagree on (threads, buckets, ways)")
     if bloom.shape != (T, bloom_bits // 32):
         raise ValueError("bloom must be (threads, bloom_bits / 32)")
+    if bvalid.dtype != torch.bool:
+        raise TypeError(f"bvalid must be bool, got {bvalid.dtype}")
     B = khi.shape[0]
+    if khi.shape != (B,) or klo.shape != (B,) or tid.shape != (B,):
+        raise ValueError("khi, klo and tid must be (B,)")
+    if not serves(plan.design, W, P, vector_aligned(bkey, bpay, bvalid)):
+        raise ValueError(f"the {plan.design} shape does not take W={W}, P={P} at these addresses")
+    if plan.grid * plan.threads < B:
+        raise ValueError("the plan's grid does not cover the wave")
     dev = khi.device
     hit = torch.empty(B, dtype=torch.bool, device=dev)
     pay = torch.empty((B, P), dtype=torch.int32, device=dev)
     tid = tid.to(torch.int32)
-    fn = build.function("cache_probe", "dpa_cache_probe", n_ptrs=9, n_ints=10)
+    ptrs = build.pointers([bloom, bkey, bpay, bvalid, tid, khi, klo, hit, pay], dev)
+    if B == 0:  # nothing to launch
+        return hit, pay
+    fn = build.function("cache_probe", "dpa_cache_probe", n_ptrs=9, n_ints=13)
     err = fn(
-        *build.pointers([bloom, bkey, bpay, bvalid, tid, khi, klo, hit, pay], dev),
+        *ptrs,
         B,
         bloom.shape[1],
         NB,
@@ -91,6 +174,9 @@ def probe_cuda(
         bloom_bits,
         *[int(s) for s in salts_bloom],
         int(salt_bucket),
+        DESIGNS[plan.design],
+        plan.threads,
+        plan.grid,
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
     )
     build.check(err, "cache_probe")

@@ -4,6 +4,7 @@ kernel equals its plain-torch version bitwise (skipped without CUDA).  This
 file imports no JAX, so its card tests run on a machine without it."""
 
 import ast
+import itertools
 import os
 import subprocess
 import sys
@@ -62,6 +63,21 @@ def test_gather_kernel_wrapper_refuses_cpu_tensors():
     pool = torch.zeros((4, 2, 2, 8), dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="CUDA"):
         paged_gather.gather_cuda(pool, torch.tensor([1, 2], dtype=torch.int32))
+
+
+def test_probe_kernel_wrapper_refuses_cpu_tensors():
+    """``probe_cuda`` launches the kernel or raises: CPU caches never reach
+    the plain version through it."""
+    from repro_torch.core import hotcache
+    from repro_torch.kernels import cache_probe
+
+    cfg = hotcache.CacheConfig(n_threads=4)
+    c = hotcache.make_cache(cfg, "cpu")
+    khi = klo = torch.zeros(3, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        cache_probe.probe_cuda(c.bloom, c.bkey, c.bval, c.bvalid, khi, khi, klo, bloom_bits=cfg.bloom_bits,
+                               n_buckets=cfg.n_buckets, salts_bloom=hotcache.SALT_BLOOM,
+                               salt_bucket=hotcache.SALT_BUCKET)
 
 
 def test_store_defaults_to_the_card():
@@ -247,3 +263,102 @@ def test_gather_kv_kernel_equals_plain_on_the_card(cuda_device, block, dtype, of
     for a, b in zip(got, want, strict=True):
         assert a.shape == b.shape == (n, *block) and a.dtype == dtype
         assert torch.equal(a.view(bits), b.view(bits))
+
+
+def _probe_state(fill, T, NB, W, P, bits, offset, device):
+    """A cache state filled by hand (no admits): ``empty``, ``random`` (about
+    half the ways valid; some keys twice in their bucket with different
+    payloads; most keys' Bloom bits set, so that some sit in their bucket
+    Bloom-negative) or ``full`` (every way valid).  ``offset``: the key,
+    payload and flag arrays start one element past an aligned base.  Returns
+    the arrays and 65536 probe keys (cached keys and random ones)."""
+    from repro_torch.core import cacheset, hotcache
+    from repro_torch.core.keys import u32
+
+    rng = np.random.default_rng(T * 1000 + NB * 10 + W + P)
+    n = T * NB * W
+    bloom = np.zeros((T, bits // 32), np.uint32)
+    bkey = rng.integers(0, 2**32, (T, NB, W, 2), dtype=np.uint32)
+    bpay = rng.integers(0, 2**32, (T, NB, W, P), dtype=np.uint32)
+    bvalid = np.zeros((T, NB, W), bool) if fill == "empty" else (
+        np.ones((T, NB, W), bool) if fill == "full" else rng.random((T, NB, W)) < 0.5)
+    keys = rng.integers(0, 2**64, n, dtype=np.uint64)
+
+    def limbs(k):
+        return [torch.from_numpy(x.astype(np.uint32).view(np.int32).copy())
+                for x in (k >> np.uint64(32), k & np.uint64(2**32 - 1))]
+
+    if fill != "empty":
+        kh, kl = limbs(keys)
+        t = hotcache.steer(kh, kl, T).numpy()
+        b = cacheset.bucket_of(u32(kh), u32(kl), NB, hotcache.SALT_BUCKET).numpy()
+        way = rng.integers(0, W, n)
+        twice = rng.random(n) < 0.3
+        for ws in (way, np.where(twice, (way + 1 + rng.integers(0, W, n)) % W, way)):
+            bkey[t, b, ws, 0] = (keys >> np.uint64(32)).astype(np.uint32)
+            bkey[t, b, ws, 1] = (keys & np.uint64(2**32 - 1)).astype(np.uint32)
+        marked = rng.random(n) < 0.8
+        for h in cacheset.bloom_hashes(u32(kh), u32(kl), bits, hotcache.SALT_BLOOM):
+            h = h.numpy()[marked]
+            np.bitwise_or.at(bloom, (t[marked], h // 32), np.uint32(1) << (h % 32).astype(np.uint32))
+    probes = np.concatenate([rng.choice(keys, 45000), rng.integers(0, 2**64, 65536 - 45000, dtype=np.uint64)])
+
+    def put(a, dtype):
+        flat = torch.from_numpy(a.view(dtype).reshape(-1).copy())
+        pad = torch.zeros(flat.numel() + offset, dtype=flat.dtype)
+        pad[offset:] = flat
+        return pad.to(device)[offset:].view(a.shape)
+
+    return ((put(bloom, np.int32), put(bkey, np.int32), put(bpay, np.int32), put(bvalid, np.bool_)),
+            [t.to(device) for t in limbs(probes)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_buckets", [8, 24])
+@pytest.mark.parametrize("P", [1, 2, 3])
+@pytest.mark.parametrize("W", [2, 4, 8])
+def test_probe_kernel_equals_plain_in_every_shape(cuda_device, W, P, n_buckets):
+    """Kernel B2 in every shape that takes the layout (and CTAs of 128 and
+    256) == ``probe_plain`` bitwise, on an empty cache, a half-filled one
+    with repeated keys and Bloom-negative keys in their buckets, and full
+    buckets; at aligned bases and one element off them (the vector shapes
+    refuse those, and the plan takes the generic one); for waves of 0, 1,
+    300 and 65536 requests.  ``probe_cuda`` launches once per non-empty wave
+    in the plan's shape."""
+    from repro_torch.core import hotcache
+    from repro_torch.kernels import build, cache_probe
+
+    T, bits = 64, 256
+    kw = dict(bloom_bits=bits, n_buckets=n_buckets, salts_bloom=hotcache.SALT_BLOOM,
+              salt_bucket=hotcache.SALT_BUCKET)
+    for fill in ("empty", "random", "full"):
+        for offset in (0, 1):
+            (bloom, bkey, bpay, bvalid), (khi, klo) = _probe_state(fill, T, n_buckets, W, P, bits, offset,
+                                                                   cuda_device)
+            aligned = cache_probe.vector_aligned(bkey, bpay, bvalid)
+            assert aligned == (offset == 0)
+            for B in (0, 1, 300, 65536):
+                tid = hotcache.steer(khi[:B], klo[:B], T)
+                args = (bloom, bkey, bpay, bvalid, tid, khi[:B], klo[:B])
+                want = cache_probe.probe_plain(*args, **kw)
+                if fill == "random" and B == 65536:
+                    assert bool(want[0].any()) and not bool(want[0].all())
+                for design, threads in itertools.product(cache_probe.DESIGNS, (128, 256)):
+                    plan = cache_probe.shape(design, B, threads)
+                    if not cache_probe.serves(design, W, P, aligned):
+                        with pytest.raises(ValueError, match="shape does not take"):
+                            cache_probe.launch(*args, plan=plan, **kw)
+                        continue
+                    got = cache_probe.launch(*args, plan=plan, **kw)
+                    torch.cuda.synchronize()
+                    for a, b, name in zip(got, want, ("hit", "payload"), strict=True):
+                        assert a.shape == b.shape and a.dtype == b.dtype
+                        assert torch.equal(a, b), f"{name}: {plan}, {fill}, offset {offset}, B={B}"
+                name = f"cache_probe_p{P}"
+                before = build.launches.get(name, 0)
+                got = cache_probe.probe_cuda(*args, **kw)
+                torch.cuda.synchronize()
+                assert build.launches.get(name, 0) == before + (B > 0)
+                assert all(torch.equal(a, b) for a, b in zip(got, want))
+    sm = build.sm_count(cuda_device.index or 0)  # both shapes the plan picks ran above
+    assert [cache_probe.probe_plan(B, 4, 2, True, sm).design for B in (300, 65536)] == ["vector", "lean"]

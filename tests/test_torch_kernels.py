@@ -21,7 +21,7 @@ from repro.core.keys import split_u64
 from repro.kernels import cache_probe as jprobe
 from repro.kernels import ops as jops
 from repro.kernels.range_scan import range_pallas
-from repro_torch.core import carry, hotcache, lookup, scancache
+from repro_torch.core import cacheset, carry, hotcache, lookup, scancache
 from repro_torch.core.hotcache import CacheConfig
 from repro_torch.core.keys import u32
 from repro_torch.core.scancache import ScanCacheConfig
@@ -234,6 +234,161 @@ def test_cache_probe_p1_matches_pallas(n_threads, n_buckets):
     assert bool(got[0].any())
     for g, w in zip(got, want):
         _eq(g, w)
+
+
+@pytest.mark.parametrize("B", [0, 1, 300, 65536])
+@pytest.mark.parametrize("view", ["aligned", "offset"])
+@pytest.mark.parametrize("P", [1, 2, 3])
+@pytest.mark.parametrize("W", [2, 4, 8])
+def test_probe_plan_is_valid(W, P, view, B):
+    """Kernel B2's plan: 16-byte loads of the bucket exactly for the caches'
+    layout (4 ways, P = 1 or 2, arrays whose bases allow 16-byte words),
+    all at once for waves of at most one CTA per SM and Bloom- and
+    match-gated beyond, the generic 32-bit shape for any other layout;
+    every shape that serves a layout covers each request with its own
+    thread, and no CTA is left without a request."""
+    T, NB = 3, 5
+    extra = 1 if view == "offset" else 0  # one word in: 4-byte but not 16-byte aligned
+    bkey = torch.zeros(T * NB * W * 2 + extra, dtype=torch.int32)[extra:].view(T, NB, W, 2)
+    bpay = torch.zeros(T * NB * W * P + extra, dtype=torch.int32)[extra:].view(T, NB, W, P)
+    bvalid = torch.zeros(T * NB * W + extra, dtype=torch.bool)[extra:].view(T, NB, W)
+    aligned = cache_probe.vector_aligned(bkey, bpay, bvalid)
+    assert aligned == (view == "aligned")
+    if P == 1:  # the scan cache's leaf ids, passed as a (T, NB, W, 1) view
+        assert cache_probe.vector_aligned(bkey, bpay[..., 0][..., None], bvalid) == aligned
+    sm = 132
+    plan = cache_probe.probe_plan(B, W, P, aligned, sm)
+    edge = sm * cache_probe.THREADS  # the largest wave of one CTA per SM
+    if W == 4 and P <= 2 and aligned:  # all loads at once up to one CTA per SM
+        assert plan.design == ("vector" if B <= edge else "lean")
+        assert [cache_probe.probe_plan(b, W, P, aligned, sm).design for b in (edge, edge + 1)] == ["vector", "lean"]
+    else:
+        assert plan.design == "generic"
+    for design in cache_probe.DESIGNS:
+        ok = cache_probe.serves(design, W, P, aligned)
+        assert ok or design in ("loop", "vector", "gated", "late", "lean")
+        if not ok:
+            continue
+        for threads in (cache_probe.THREADS, 256):
+            sh = plan if design == plan.design and threads == cache_probe.THREADS else cache_probe.shape(
+                design, B, threads
+            )
+            assert sh.threads % 32 == 0 and sh.threads <= 256
+            assert sh.grid * sh.threads >= B > (sh.grid - 1) * sh.threads or sh.grid == B == 0
+
+
+def _hand_cache(P, n_threads=8, n_buckets=24, ways=4, bloom_bits=256):
+    """Keys placed by hand in the caches' arrays (numpy u32), with the
+    hashes of the port: (bloom, bkey, bpay, bvalid) and helpers that set a
+    key's way and its Bloom bits."""
+    salts, bsalt = (hotcache.SALT_BLOOM, hotcache.SALT_BUCKET) if P == 2 else (
+        scancache.SALT_SBLOOM, scancache.SALT_SBUCKET)
+    bloom = np.zeros((n_threads, bloom_bits // 32), np.uint32)
+    bkey = np.zeros((n_threads, n_buckets, ways, 2), np.uint32)
+    bpay = np.zeros((n_threads, n_buckets, ways, P), np.uint32)
+    bvalid = np.zeros((n_threads, n_buckets, ways), bool)
+
+    def where(k):
+        (_, _), (th, tl) = _limbs(np.array([k], np.uint64))
+        t = int(hotcache.steer(th, tl, n_threads)[0])
+        b = int(cacheset.bucket_of(u32(th), u32(tl), n_buckets, bsalt)[0])
+        bits = [int(h[0]) for h in cacheset.bloom_hashes(u32(th), u32(tl), bloom_bits, salts)]
+        return t, b, bits
+
+    def put(k, way, pay, valid=True, held=None):
+        """Way ``way`` of key ``k``'s bucket holds key ``held`` (``k``)."""
+        t, b, _ = where(k)
+        bkey[t, b, way] = split_u64(np.array([k if held is None else held], np.uint64))[0]
+        bpay[t, b, way] = pay
+        bvalid[t, b, way] = valid
+
+    def mark(k):
+        t, _, bits = where(k)
+        for h in bits:
+            bloom[t, h // 32] |= np.uint32(1) << np.uint32(h % 32)
+
+    return (bloom, bkey, bpay, bvalid), where, put, mark
+
+
+@pytest.mark.parametrize("case", ["first_match", "bloom_negative"])
+@pytest.mark.parametrize("P", [2, 1])
+def test_cache_probe_hand_built_states_match_pallas(P, case):
+    """Two cache states built by hand, probed by the JAX package's Pallas
+    kernel (interpret mode) and by the port (the plain version on the CPU):
+    a key held valid in two ways with different payloads (behind an invalid
+    copy) answers with the first valid way's payload; a key sitting valid in
+    its bucket but Bloom-negative is a miss with a zero payload."""
+    rng = np.random.default_rng(11 + P)
+    arrays, where, put, mark = _hand_cache(P)
+    keys = rng.integers(0, 2**63, 64, dtype=np.uint64)
+    slots = {}
+    for k in keys:  # keys whose (thread, bucket) no earlier key took
+        slots.setdefault(where(int(k))[:2], int(k))
+    keys = np.array(sorted(slots.values()), np.uint64)[:12]
+    assert keys.size == 12
+    want_hit, want_pay = [], []
+    for j, k in enumerate(keys.tolist()):
+        pay = [[(j << 8) | (w << 4) | p for p in range(P)] for w in range(4)]
+        if case == "first_match":
+            put(k, 0, pay[0], held=k ^ 0x5A5A)  # another key, valid
+            put(k, 1, pay[1], valid=False)  # an invalid copy
+            put(k, 2, pay[2])  # the first valid copy: the answer
+            put(k, 3, pay[3])
+            mark(k)
+            want_hit.append(True)
+            want_pay.append(pay[2])
+        else:
+            put(k, 0, pay[0])
+            negative = j % 2 == 0  # half of the keys lack a Bloom bit
+            if not negative:
+                mark(k)
+            want_hit.append(not negative)
+            want_pay.append([0] * P if negative else pay[0])
+    if case == "bloom_negative":  # no other key's bits may cover a negative one's
+        bloom = arrays[0]
+        for j, k in enumerate(keys.tolist()):
+            t, _, bits = where(k)
+            if j % 2 == 0:
+                bloom[t, bits[0] // 32] &= ~(np.uint32(1) << np.uint32(bits[0] % 32))
+    probes = np.concatenate([keys, rng.integers(0, 2**63, 4, dtype=np.uint64)])
+    want_hit += [False] * 4
+    want_pay += [[0] * P] * 4
+    bloom, bkey, bpay, bvalid = arrays
+    (jh, jl), (th, tl) = _limbs(probes)
+    ti = lambda a: torch.from_numpy(a.view(np.int32).copy())  # noqa: E731
+    if P == 2:
+        cfg_j, cfg_t = jhot.CacheConfig(n_threads=8), CacheConfig(n_threads=8)
+        jc = jhot.make_cache(cfg_j)._replace(bloom=jnp.asarray(bloom), bkey=jnp.asarray(bkey),
+                                             bval=jnp.asarray(bpay), bvalid=jnp.asarray(bvalid))
+        tc = hotcache.make_cache(cfg_t, "cpu")._replace(bloom=ti(bloom), bkey=ti(bkey), bval=ti(bpay),
+                                                       bvalid=torch.from_numpy(bvalid.copy()))
+        want = jprobe.probe_pallas(jc, jhot.steer(jh, jl, 8), jh, jl, cfg=cfg_j, block_requests=probes.size)
+        got = ops.cache_probe(tc, hotcache.steer(th, tl, 8), th, tl, cfg=cfg_t)
+        plain = cache_probe.probe_plain(tc.bloom, tc.bkey, tc.bval, tc.bvalid, hotcache.steer(th, tl, 8), th, tl,
+                                        bloom_bits=256, n_buckets=24, salts_bloom=hotcache.SALT_BLOOM,
+                                        salt_bucket=hotcache.SALT_BUCKET)
+        plain = (plain[0], plain[1][:, 0], plain[1][:, 1])
+        pay_got = torch.stack(got[1:], 1)
+    else:
+        cfg_j, cfg_t = jscan.ScanCacheConfig(n_threads=8), ScanCacheConfig(n_threads=8)
+        leaf = bpay[..., 0].view(np.int32)
+        jc = jscan.make_cache(cfg_j)._replace(bloom=jnp.asarray(bloom), bkey=jnp.asarray(bkey),
+                                              bleaf=jnp.asarray(leaf), bvalid=jnp.asarray(bvalid))
+        tc = scancache.make_cache(cfg_t, "cpu")._replace(bloom=ti(bloom), bkey=ti(bkey),
+                                                        bleaf=torch.from_numpy(leaf.copy()),
+                                                        bvalid=torch.from_numpy(bvalid.copy()))
+        want = jprobe.anchor_probe_pallas(jc, jhot.steer(jh, jl, 8), jh, jl, cfg=cfg_j, block_requests=probes.size)
+        got = ops.scan_anchor_probe(tc, hotcache.steer(th, tl, 8), th, tl, cfg=cfg_t)
+        plain = cache_probe.probe_plain(tc.bloom, tc.bkey, tc.bleaf[..., None], tc.bvalid, hotcache.steer(th, tl, 8),
+                                        th, tl, bloom_bits=256, n_buckets=24, salts_bloom=scancache.SALT_SBLOOM,
+                                        salt_bucket=scancache.SALT_SBUCKET)
+        plain = (plain[0], plain[1][:, 0])
+        pay_got = got[1][:, None]
+    for g, w, pl in zip(got, want, plain, strict=True):
+        _eq(g, w)
+        _eq(pl, w)
+    _eq(got[0], np.array(want_hit))
+    _eq(pay_got, np.array(want_pay, np.uint32))
 
 
 def test_cache_invalidate_matches():
