@@ -25,8 +25,26 @@ Phases, one JSON line each (any mismatch raises and exits non-zero):
                Every GET and RANGE answer is checked against a numpy oracle,
                and the launch counters of B1-B3 must advance.  Prints the
                tree's inner nodes per level (what GET could stage).
+   versioned — the deployment ``launch/serve.py`` documents for point-in-time
+               reads and TTL (``--retain-epochs 64 --ttl 4``) as one store on
+               phase 3's 50M keys: a pinned snapshot, 6 rounds of a zipf GET
+               wave and a 5 % UPDATE wave of distinct keys with ``ttl=4``
+               (a second snapshot after round 3), a filtered RANGE wave, ``as_of``
+               GET and RANGE waves at both snapshots and a bounded ``as_of``
+               resume, expiry, ``ttl_sweep`` (reads equal before and after
+               it, the pinned snapshot still serves the expired keys), then
+               ``extract_slice`` of 1/1024 of the key space, ``compact_chain``
+               (nothing while the window still holds the slice's versions,
+               the stubs once it has aged out) and ``ingest_slice`` back.
+               Every answer is checked against the numpy oracle (expired
+               keys dead) or its copy frozen at the snapshot; B1-B3 must run
+               on the live filtered waves.  One filtered RANGE wave and an
+               ``as_of`` GET and RANGE wave also run under ``torch.profiler``.
 4. parity   — the same seeded op stream on a 200k-key store on the card and
-               on the CPU: responses and final state tensors identical.
+               on the CPU: responses and final state tensors identical; then
+               a second pair with a retention window (TTL puts, ticks, two
+               snapshots, ``as_of`` reads and a bounded resume, the sweep,
+               extract / compact / ingest, the write fast path).
 5. paged    — the paged KV cache path at one llama3-405b attention layer's
                widths (128 query heads, 8 KV heads, head_dim 128, bf16 pools
                of 65536 blocks of 16 tokens: 4 GiB for K and V).  The page
@@ -86,6 +104,14 @@ GATHER_LONG = 1024  # B4 at a slot list longer than the card's 132 SMs
 GATHER_RANDOM = 16384  # B4's largest shape: 512 MiB read and 512 MiB written per pool
 L2_FLUSH_BYTES = 256 * 2**20  # written before each cold-L2 call: more than the 50 MB L2
 ATTEND_TOL = 1e-4  # paged vs dense on the same bf16 K/V: f32 summation order only
+# the versioned phase: launch/serve.py:29-33 (--retain-epochs 64 --ttl 4)
+VERSIONED_RETAIN = 64
+VERSIONED_TTL = 4
+VERSIONED_GROWTH = 4.0  # TreeConfig()'s pool headroom, enough for the phase
+VERSIONED_SLICE = 2**54  # extract_slice width: 1/1024 of the u64 key space
+# the second parity pair: retention and headroom as in tests/test_versioned.py
+PARITY_RETAIN, PARITY_GROWTH = 40, 64.0
+NO_DEADLINE = np.iinfo(np.int64).max  # the oracle's deadline of a key without a TTL
 
 
 def emit(obj) -> None:
@@ -137,43 +163,73 @@ def time_ms(torch, fn, reps: int = 25, warm: int = 3, cold: bool = False) -> flo
 
 
 class Oracle:
-    """Sorted keys and values with the acknowledged writes applied."""
+    """Sorted keys and values with the acknowledged writes applied, and the
+    TTL deadlines of a logical clock (a key at or past its deadline is
+    dead)."""
 
     def __init__(self, keys, vals):
         self.keys = keys
         self.vals = vals.copy()
         self.alive = np.ones(keys.size, dtype=bool)
+        self.deadline = None  # per key, made at the first TTL write
+        self.now = 0
 
     def pos(self, ks):
         p = np.searchsorted(self.keys, ks)
         assert (self.keys[p] == ks).all(), "oracle tracks updates of existing keys only"
         return p
 
-    def put(self, ks, vs):
+    def put(self, ks, vs, ttl=None):
         p = self.pos(ks)
         self.vals[p] = vs  # duplicates: the last write wins, as in the store
         self.alive[p] = True
+        if ttl is not None and self.deadline is None:
+            self.deadline = np.full(self.keys.size, NO_DEADLINE, dtype=np.int64)
+        if self.deadline is not None:  # a write without ttl clears the deadline
+            self.deadline[p] = NO_DEADLINE if ttl is None else self.now + ttl
 
     def delete(self, ks):
-        self.alive[self.pos(ks)] = False
+        p = self.pos(ks)
+        self.alive[p] = False
+        if self.deadline is not None:
+            self.deadline[p] = NO_DEADLINE
+
+    def expired(self):
+        if self.deadline is None:
+            return np.zeros(self.keys.size, dtype=bool)
+        return self.deadline <= self.now
+
+    def live(self):
+        return self.alive & ~self.expired()
+
+    def frozen(self):
+        """A copy of what reads see now, for ``as_of`` reads of this state."""
+        o = Oracle(self.keys, self.vals)
+        o.alive = self.live()
+        return o
 
     def check_get(self, ks, vals, found):
         p = np.minimum(np.searchsorted(self.keys, ks), self.keys.size - 1)
-        exp_f = (self.keys[p] == ks) & self.alive[p]
+        exp_f = (self.keys[p] == ks) & self.live()[p]
         exp_v = np.where(exp_f, self.vals[p], 0)
         assert (found == exp_f).all(), f"GET found: {int((found != exp_f).sum())} rows differ"
         assert (vals == exp_v).all(), f"GET vals: {int((vals != exp_v).sum())} rows differ"
 
-    def check_range(self, starts, limit, res):
-        idx = np.flatnonzero(self.alive)
+    def expect_range(self, starts, limit):
+        """(keys, vals, counts) of RANGE(starts, limit) on this state."""
+        idx = np.flatnonzero(self.live())
         ak, av = self.keys[idx], self.vals[idx]
         j = np.searchsorted(ak, starts)
         cols = j[:, None] + np.arange(limit)[None, :]
         ok = cols < ak.size
         cols = np.minimum(cols, ak.size - 1)
-        assert (res.counts == ok.sum(axis=1)).all(), "RANGE counts differ"
-        assert (res.keys == np.where(ok, ak[cols], 0)).all(), "RANGE keys differ"
-        assert (res.vals == np.where(ok, av[cols], 0)).all(), "RANGE vals differ"
+        return np.where(ok, ak[cols], 0), np.where(ok, av[cols], 0), ok.sum(axis=1)
+
+    def check_range(self, starts, limit, res):
+        keys, vals, counts = self.expect_range(starts, limit)
+        assert (res.counts == counts).all(), "RANGE counts differ"
+        assert (res.keys == keys).all(), "RANGE keys differ"
+        assert (res.vals == vals).all(), "RANGE vals differ"
 
 
 # ------------------------------------------------------- bytes and bounds
@@ -372,6 +428,360 @@ def max_abs_err(torch, name: str, got, want) -> float:
     if err != 0.0:
         raise AssertionError(f"kernel {name} disagrees with its plain version ({err})")
     return err
+
+
+def profile_wave(torch, op: str, requests: int, run) -> None:
+    """One wave under ``torch.profiler``: its wall time, the device time and
+    busy share, the device launches and the six kernels that took longest."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    ev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in ev) / 1e3
+    top = sorted(ev, key=lambda e: -e.self_device_time_total)[:6]
+    emit({
+        "phase": "profile", "op": op, "requests": requests, "wall_ms_profiled": wall_ms,
+        "device_ms": dev_ms, "device_busy": dev_ms / wall_ms,
+        "device_launches": sum(e.count for e in ev),
+        "top": [[e.key[:70], e.self_device_time_total / 1e3, e.count] for e in top],
+    })
+
+
+# ------------------------------------------------------- card == CPU
+
+
+def _same(results, what):
+    """The card's and the CPU's answers to one call are identical."""
+    a, b = results
+    if isinstance(a, tuple):
+        for x, y in zip(a, b):
+            assert np.array_equal(x, y), what
+    elif hasattr(a, "counts"):
+        for f in ("keys", "vals", "counts", "truncated", "cursor_leaf", "cursor_key"):
+            assert np.array_equal(getattr(a, f), getattr(b, f)), f"{what}: {f}"
+        assert a.rounds == b.rounds and a.stats == b.stats, what
+    else:
+        assert np.array_equal(a, b), what
+
+
+def _same_state(a, b):
+    """Stats, TTL sidecar, version chain and every device tensor identical."""
+    from repro_torch.core import carry
+
+    assert dataclasses.asdict(a.stats) == dataclasses.asdict(b.stats), "stats"
+    assert a.ttl == b.ttl and a._ttl_snaps == b._ttl_snaps and a.epochs.cycle == b.epochs.cycle, "ttl, epochs"
+    assert np.array_equal(a.image.ver_birth, b.image.ver_birth) and np.array_equal(a.image.ver_prev, b.image.ver_prev)
+    for to_np, fa, fb in (
+        (carry.tree_to_numpy, a.tree, b.tree),
+        (carry.ib_to_numpy, a.ib, b.ib),
+        (carry.cache_to_numpy, a.cache, b.cache),
+        (carry.scan_cache_to_numpy, a.scan_cache, b.scan_cache),
+    ):
+        xa, xb = to_np(fa), to_np(fb)
+        for f in xa:
+            assert np.array_equal(xa[f], xb[f]), f"state {f}"
+
+
+def versioned_parity(torch, dev) -> None:
+    """Phase 4, second pair: a 200k-key store with a retention window on the
+    card and on the CPU, driven through TTL puts, ticks, two snapshots,
+    ``as_of`` reads and a bounded resume, the sweep, extract / compact /
+    ingest and the write fast path.  Everything must be identical."""
+    from repro_torch.core import DPAStore, TreeConfig, datasets
+
+    t_pair = time.perf_counter()
+    pkeys = datasets.sparse(PARITY_KEYS, seed=SEED + 6)
+    pvals = pkeys ^ np.uint64(0x77)
+    stores = [DPAStore(pkeys, pvals, TreeConfig(growth=PARITY_GROWTH), retain_epochs=PARITY_RETAIN, device=d)
+              for d in (dev, "cpu")]
+    prng = np.random.default_rng(SEED + 7)
+    pz = pkeys[datasets.zipf_indices(pkeys.size, 60_000, alpha=ZIPF, seed=SEED + 8)]
+    ttl_keys = prng.choice(pkeys, 3000, replace=False)
+    _same([s.put(ttl_keys, ttl_keys ^ np.uint64(3), ttl=3) for s in stores], "ttl put")
+    snaps = [[s.snapshot_epoch() for s in stores]]
+    fast = slow = 0
+    for step in range(4):
+        q = np.concatenate([prng.choice(pz, 2048), prng.choice(ttl_keys, 512)])
+        _same([s.get(q) for s in stores], f"get {step}")
+        for e in snaps:
+            _same([s.get(q, as_of=e[0]) for s in stores], f"get as_of {step}")
+        upd = np.unique(prng.choice(pz, 1000))  # distinct: repeats would burn the window in retries
+        _same([s.put(upd, upd ^ np.uint64(step + 1), ttl=2 if step % 2 else None) for s in stores], f"put {step}")
+        dels = prng.choice(pkeys, 300)
+        _same([s.delete(dels) for s in stores], f"delete {step}")
+        for op, ks in (("put", prng.choice(pkeys, 64)), ("delete", prng.choice(pkeys, 64)), ("put", prng.choice(pz, 600))):
+            ws = [s.write_issue(op, ks, ks ^ np.uint64(9) if op == "put" else None) for s in stores]
+            assert (ws[0] is None) == (ws[1] is None), f"write plan {step}"
+            if ws[0] is None:
+                slow += 1
+                _same([s.put(ks, ks ^ np.uint64(9)) if op == "put" else s.delete(ks) for s in stores],
+                      f"serial {op} {step}")
+            else:
+                fast += 1
+                _same([s.write_finalize(w) for s, w in zip(stores, ws)], f"fast {op} {step}")
+        for s in stores:
+            s.ttl.tick(1)
+        starts = prng.choice(pz, 1024)
+        _same([s.range(starts, limit=10) for s in stores], f"range {step}")
+        for e in snaps:
+            _same([s.range(starts, limit=10, as_of=e[0]) for s in stores], f"range as_of {step}")
+            rs = [s.range_with_state(starts[:256], limit=30, max_leaves=1, max_rounds=1, as_of=e[0]) for s in stores]
+            _same(rs, f"bounded as_of {step}")
+            m = rs[0].truncated
+            if m.any():
+                _same([s.range_with_state(starts[:256][m], limit=30, max_leaves=1, start_leaves=r.cursor_leaf[m],
+                                          as_of=e[0]) for s, r in zip(stores, rs)], f"resumed as_of {step}")
+        if step == 1:
+            snaps.append([s.snapshot_epoch() for s in stores])
+            assert snaps[-1][0] == snaps[-1][1]
+    _same([np.array([s.ttl_sweep()]) for s in stores], "ttl_sweep")
+    for e in snaps:
+        _same([s.get(ttl_keys, as_of=e[0]) for s in stores], "get as_of after the sweep")
+    k_lo, k_hi = pkeys[PARITY_KEYS // 3], pkeys[PARITY_KEYS // 3 + PARITY_KEYS // 50]
+    _same([np.array([s.count_slice(k_lo, k_hi)]) for s in stores], "count_slice")
+    xs = [s.extract_slice(k_lo, k_hi) for s in stores]
+    _same(xs, "extract_slice")
+    _same([np.array([s.compact_chain(), s.stub_count()]) for s in stores], "compact in the window")
+    for i in range(PARITY_RETAIN):  # age the window past the extract
+        for s in stores:
+            s.put(pkeys[i : i + 1], pkeys[i : i + 1])
+            s.flush()
+    _same([np.array([s.compact_chain(), s.stub_count(), s.live_count()]) for s in stores], "compact")
+    _same([np.array([s.ingest_slice(*x)]) for s, x in zip(stores, xs)], "ingest_slice")
+    _same([s.items() for s in stores], "items")
+    a, b = stores
+    _same_state(a, b)
+    assert fast and slow, "both write paths must run"
+    assert a.stats.stub_leaves_compacted > 0 and a.stats.migrated_in_keys == xs[0][0].size > 0
+    emit({"phase": "parity", "keys": PARITY_KEYS, "retain_epochs": PARITY_RETAIN, "growth": PARITY_GROWTH,
+          "identical": True, "snapshots": [e[0] for e in snaps], "cycles": a.epochs.cycle,
+          "fast_writes": fast, "serial_writes": slow, "slice_keys": int(xs[0][0].size),
+          "stubs_compacted": a.stats.stub_leaves_compacted, "flush_cycles": a.stats.flush_cycles,
+          "stitch_applies": a.stats.stitch_applies, "seconds": time.perf_counter() - t_pair})
+
+
+# ------------------------------------------------------- versioned phase
+
+
+def versioned_phase(torch, dev, keys, vals) -> None:
+    """The retention and TTL deployment on phase 3's keys: see the module
+    docstring.  Raises on any mismatch."""
+    from repro_torch.core import DPAStore, EpochRetiredError, TreeConfig, datasets
+    from repro_torch.kernels import build
+
+    W = WAVE
+    n_upd = max(1, round(W * 5 / 95))
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    st = DPAStore(keys, vals, TreeConfig(growth=VERSIONED_GROWTH), retain_epochs=VERSIONED_RETAIN, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    oracle = Oracle(keys, vals)
+    rng = np.random.default_rng(SEED + 5)
+    zipf = keys[datasets.zipf_indices(keys.size, 18 * W + 12 * n_upd, alpha=ZIPF, seed=SEED + 5)]
+    zpos = 0
+
+    def draw(n):
+        nonlocal zpos
+        zpos += n
+        assert zpos <= zipf.size, "draw budget exceeded"
+        return zipf[zpos - n : zpos]
+
+    timed = {}  # name -> [requests, seconds]
+
+    def clock(name, n, fn):
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        acc = timed.setdefault(name, [0, 0.0])
+        acc[0] += n
+        acc[1] += time.perf_counter() - t
+        return out
+
+    def distinct(n):
+        """The first ``n`` distinct keys of the next ``2n`` draws: an UPDATE
+        wave writes each key once (a client coalesces a wave's writes to
+        one key; the last would win anyway).  With repeats, the hottest
+        key's ~170 writes a wave would take ~11 auto-retry flush cycles,
+        and six rounds would outrun the 64-cycle window before the reads."""
+        ks = draw(2 * n)
+        _, first = np.unique(ks, return_index=True)
+        assert first.size >= n, "too few distinct keys drawn"
+        return ks[np.sort(first)[:n]]
+
+    def tick(n):
+        st.ttl.tick(n)
+        oracle.now += n
+
+    launches = {}
+    snap0 = st.snapshot_epoch()
+    frozen0 = oracle.frozen()
+
+    # -- live waves: 6 rounds of GET + TTL UPDATE; the filter applies from
+    # the second GET on, and the launches are counted from there
+    for r in range(ROUNDS):
+        if r == 1:
+            build.reset_launches()
+        q = draw(W)
+        v, f = clock("get_live" if r else "get_unfiltered", W, lambda: st.get(q))
+        oracle.check_get(q, v, f)
+        ks = distinct(n_upd)
+        vs = rng.integers(0, 2**64, ks.size, dtype=np.uint64)
+        assert (st.put(ks, vs, ttl=VERSIONED_TTL) == 0).all()
+        oracle.put(ks, vs, ttl=VERSIONED_TTL)
+        tick(1)
+        if r == 2:
+            snap1 = st.snapshot_epoch()
+            frozen1 = oracle.frozen()
+    assert oracle.expired().any(), "the first rounds' TTL keys must have expired by now"
+    starts = draw(W)
+    res = clock("range_live", W, lambda: st.range(starts, limit=10))
+    oracle.check_range(starts, 10, res)
+    assert res.stats.get("ttl_filtered") == 1, "the live RANGE must run the TTL filter"
+    launches["live"] = dict(build.launches)
+    for k in ("get", "cache_probe_p2", "cache_probe_p1", "range_walk"):
+        assert launches["live"][k] > 0, f"kernel {k} was not launched on the TTL-filtered waves"
+
+    # -- point-in-time reads at both snapshots, and a bounded resume
+    build.reset_launches()
+    resolve_ms = []
+    for _ in range(5):
+        t = time.perf_counter()
+        st._resolve_table(snap0)
+        torch.cuda.synchronize()
+        resolve_ms.append((time.perf_counter() - t) * 1e3)
+    for snap, frozen, tag in ((snap0, frozen0, "0"), (snap1, frozen1, "1")):
+        q = draw(W)
+        v, f = clock("get_as_of" + tag, W, lambda: st.get(q, as_of=snap))
+        frozen.check_get(q, v, f)
+        starts = draw(W)
+        res = clock("range_as_of" + tag, W, lambda: st.range(starts, limit=10, as_of=snap))
+        frozen.check_range(starts, 10, res)
+        assert res.stats["as_of"] == snap
+    sub = draw(4096)
+    a = st.range_with_state(sub, limit=10, max_leaves=1, max_rounds=1, as_of=snap0)
+    ek, ev, ec = frozen0.expect_range(sub, 10)
+    cols = np.arange(10)[None, :] < a.counts[:, None]
+    assert (np.where(cols, ek, 0) == a.keys).all() and (np.where(cols, ev, 0) == a.vals).all(), "bounded as_of rows"
+    m = a.truncated
+    assert m.any() and (a.counts[m] < ec[m]).all(), "max_rounds=1 must leave rows truncated"
+    k2 = np.where(a.counts[m] > 0, a.cursor_key[m] + np.uint64(1), sub[m])
+    b = st.range_with_state(k2, limit=10, max_leaves=1, start_leaves=a.cursor_leaf[m], as_of=snap0)
+    for i, row in enumerate(np.flatnonzero(m)):
+        c = int(a.counts[row])
+        got = np.concatenate([a.keys[row, :c], b.keys[i, : b.counts[i]]])[:10]
+        assert got.size == ec[row] and (got == ek[row, : ec[row]]).all(), "resumed as_of row"
+    launches["as_of"] = dict(build.launches)
+    # where the time of the filtered and the as_of waves goes
+    profile_wave(torch, "range_ttl", W, lambda: st.range(draw(W), limit=10))
+    profile_wave(torch, "get_as_of", W, lambda: st.get(draw(W), as_of=snap0))
+    profile_wave(torch, "range_as_of", W, lambda: st.range(draw(W), limit=10, as_of=snap0))
+
+    # -- expiry: filtered reads, the sweep, the same reads again
+    tick(VERSIONED_TTL)
+    n_expired = int(oracle.expired().sum())
+    qx = np.concatenate([draw(W // 2), keys[np.flatnonzero(oracle.expired())[: W // 2]]])
+    build.reset_launches()
+    pre = clock("get_live", qx.size, lambda: st.get(qx))
+    oracle.check_get(qx, *pre)
+    sx = draw(W)
+    pre_r = clock("range_live", W, lambda: st.range(sx, limit=10))
+    oracle.check_range(sx, 10, pre_r)
+    launches["expired"] = dict(build.launches)
+    build.reset_launches()
+    t = time.perf_counter()
+    reclaimed = st.ttl_sweep()
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t
+    assert reclaimed == n_expired, f"ttl_sweep reclaimed {reclaimed}, {n_expired} expired"
+    oracle.alive &= ~oracle.expired()
+    sweep_compacted = st.stats.stub_leaves_compacted
+    post = st.get(qx)
+    post_r = st.range(sx, limit=10)
+    assert all((x == y).all() for x, y in zip(pre, post)), "GET after the sweep != the filtered GET before it"
+    for f in ("keys", "vals", "counts"):
+        assert (getattr(pre_r, f) == getattr(post_r, f)).all(), f"RANGE {f} after the sweep"
+    v, f = st.get(qx, as_of=snap0)  # the pinned snapshot still serves the expired keys
+    frozen0.check_get(qx, v, f)
+    assert f[W // 2 :].all(), "snap0 must still serve the expired keys"
+    launches["sweep"] = dict(build.launches)
+
+    # -- slice migration: extract 1/1024 of the key space, compact, ingest
+    build.reset_launches()
+    k_lo = np.uint64(int(rng.integers(1, 1023)) * VERSIONED_SLICE)
+    k_hi = k_lo + np.uint64(VERSIONED_SLICE)
+    st.flush()
+    in_slice = (keys >= k_lo) & (keys < k_hi) & oracle.live()
+    assert st.count_slice(k_lo, k_hi) == int(in_slice.sum()), "count_slice"
+    t = time.perf_counter()
+    xk, xv = st.extract_slice(k_lo, k_hi)
+    torch.cuda.synchronize()
+    extract_s = time.perf_counter() - t
+    assert xk.size == int(in_slice.sum()) > 0, "extracted keys"
+    assert (xk == keys[in_slice]).all() and (xv == oracle.vals[in_slice]).all(), "extracted pairs"
+    oracle.delete(xk)
+    stubs = st.stub_count()
+    t = time.perf_counter()
+    held = st.compact_chain()  # the window still holds the slice's versions
+    compact_held_s = time.perf_counter() - t
+    assert held == 0 and st.stub_count() == stubs, "compaction inside the retention window"
+    cycle_extract = st.epochs.cycle
+    for i in range(VERSIONED_RETAIN):  # age the window past the extract: one write and flush per cycle
+        k = keys[np.flatnonzero(oracle.live())[i : i + 1]]
+        st.put(k, k)
+        oracle.put(k, k)
+        st.flush()
+    t = time.perf_counter()
+    compacted = st.compact_chain()
+    torch.cuda.synchronize()
+    compact_s = time.perf_counter() - t
+    assert compacted > 0 and st.stub_count() < stubs, "stub_count must fall once the window has aged out"
+    try:
+        st.get(qx[:4], as_of=snap0)
+    except EpochRetiredError:
+        pass
+    else:
+        raise AssertionError("snap0 must be retired once the window has aged out")
+    t = time.perf_counter()
+    assert st.ingest_slice(xk, xv) == xk.size
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t
+    oracle.put(xk, xv)
+    assert st.count_slice(k_lo, k_hi) == xk.size, "count_slice after ingest"
+    q = np.concatenate([xk[:: max(1, xk.size // 4096)], draw(W // 2)])
+    oracle.check_get(q, *st.get(q))
+    starts = np.concatenate([xk[:: max(1, xk.size // 2048)], draw(W // 2)])
+    oracle.check_range(starts, 10, st.range(starts, limit=10))
+    launches["migration"] = dict(build.launches)
+    stats = st.stats
+    # batched cycles: one apply per flush cycle, and one per compaction that removed stubs
+    assert stats.flush_cycles + int(sweep_compacted > 0) + 1 == stats.stitch_applies, "applies per cycle"
+    emit({
+        "phase": "versioned", "keys": int(keys.size), "wave": W, "retain_epochs": VERSIONED_RETAIN,
+        "ttl": VERSIONED_TTL, "growth": VERSIONED_GROWTH, "store_build_s": build_s,
+        "leaves_pool": int(st.tree.leaf_count.shape[0]), "depth": st.depth,
+        "snapshots": [snap0, snap1], "cycles": st.epochs.cycle, "cycles_at_extract": cycle_extract,
+        **{f"{k}_mops": n / sec / 1e6 for k, (n, sec) in timed.items()},
+        "requests": {k: n for k, (n, _) in timed.items()},
+        "resolve_table_ms_median": float(np.median(resolve_ms)), "resolve_table_ms": resolve_ms,
+        "ttl_sweep_s": sweep_s, "keys_expired": n_expired, "keys_reclaimed": reclaimed,
+        "slice": [int(k_lo), int(k_hi)], "slice_keys": int(xk.size), "extract_slice_s": extract_s,
+        "stubs_after_extract": stubs, "compact_in_window_s": compact_held_s, "compact_chain_s": compact_s,
+        "stubs_compacted": compacted, "stubs_after": st.stub_count(), "ingest_slice_s": ingest_s,
+        "launches": launches, "flush_cycles": stats.flush_cycles, "stitch_applies": stats.stitch_applies,
+        "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "oracle": "all live, as_of, swept and migrated answers equal",
+        "seconds": time.perf_counter() - t_phase,
+    })
+    del st, oracle, frozen0, frozen1, zipf
+    torch.cuda.empty_cache()
 
 
 # ----------------------------------------------------------- paged phase
@@ -669,7 +1079,7 @@ def paged_phase(torch, dev, kernels) -> None:
 def main() -> int:
     torch = _setup()
 
-    from repro_torch.core import DPAStore, carry, datasets
+    from repro_torch.core import DPAStore, datasets
     from repro_torch.kernels import build
 
     dev = torch.device("cuda")
@@ -823,28 +1233,14 @@ def main() -> int:
         "oracle": "all GET and RANGE answers equal",
     })
     # ---- where one wave's time goes (torch.profiler) ------------------------
-    from torch.profiler import ProfilerActivity, profile
-
-    waves = (("get", lambda q: st.get(q)), ("range", lambda q: st.range(q, limit=10)))
-    for op, run in waves:
-        q = draw(W)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t = time.perf_counter()
-            run(q)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t) * 1e3
-        ev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-        dev_ms = sum(e.self_device_time_total for e in ev) / 1e3
-        top = sorted(ev, key=lambda e: -e.self_device_time_total)[:6]
-        emit({
-            "phase": "profile", "op": op, "requests": W, "wall_ms_profiled": wall_ms,
-            "device_ms": dev_ms, "device_busy": dev_ms / wall_ms,
-            "device_launches": sum(e.count for e in ev),
-            "top": [[e.key[:70], e.self_device_time_total / 1e3, e.count] for e in top],
-        })
-    del st, oracle, zipf, keys, vals
+    profile_wave(torch, "get", W, lambda: st.get(draw(W)))
+    profile_wave(torch, "range", W, lambda: st.range(draw(W), limit=10))
+    del st, oracle, zipf
     torch.cuda.empty_cache()
+
+    # ---- the versioned phase, on the same keys -------------------------------
+    versioned_phase(torch, dev, keys, vals)
+    del keys, vals
 
     # ---- 4. the card against the CPU ---------------------------------------
     pkeys = datasets.sparse(PARITY_KEYS, seed=SEED + 1)
@@ -854,59 +1250,40 @@ def main() -> int:
     pz = pkeys[datasets.zipf_indices(pkeys.size, 200_000, alpha=ZIPF, seed=SEED + 3)]
     live = pkeys.copy()
 
-    def same(results, what):
-        a, b = results
-        if isinstance(a, tuple):
-            for x, y in zip(a, b):
-                assert np.array_equal(x, y), what
-        elif hasattr(a, "counts"):
-            for f in ("keys", "vals", "counts", "truncated", "cursor_leaf", "cursor_key"):
-                assert np.array_equal(getattr(a, f), getattr(b, f)), f"{what}: {f}"
-            assert a.rounds == b.rounds and a.stats == b.stats, what
-        else:
-            assert np.array_equal(a, b), what
-
     n_ops = 0
     for step in range(12):
         q = np.concatenate([prng.choice(pz, 4096), prng.integers(0, 2**63, 512, dtype=np.uint64)])
-        same([s.get(q) for s in stores], f"get {step}")
+        _same([s.get(q) for s in stores], f"get {step}")
         newk = prng.integers(0, 2**63, 1500, dtype=np.uint64)
         newv = prng.integers(0, 2**64, newk.size, dtype=np.uint64)
-        same([s.put(newk, newv) for s in stores], f"put new {step}")
+        _same([s.put(newk, newv) for s in stores], f"put new {step}")
         live = np.concatenate([live, newk])
         oldk = prng.choice(pz, 1500)
-        same([s.put(oldk, oldk ^ np.uint64(step + 1)) for s in stores], f"put old {step}")
+        _same([s.put(oldk, oldk ^ np.uint64(step + 1)) for s in stores], f"put old {step}")
         dk = prng.choice(live, 600)
-        same([s.delete(dk) for s in stores], f"delete {step}")
+        _same([s.delete(dk) for s in stores], f"delete {step}")
         starts = np.concatenate([prng.choice(pz, 1024), prng.choice(live, 256)])
         limit, ml = [(10, 4), (40, 1), (100, 2)][step % 3]
-        same([s.range(starts, limit=limit, max_leaves=ml) for s in stores], f"range {step}")
+        _same([s.range(starts, limit=limit, max_leaves=ml) for s in stores], f"range {step}")
         kmax = starts + np.uint64(2**44)
-        same([s.range(starts, limit=limit, k_max=kmax, max_leaves=ml) for s in stores], f"range k_max {step}")
+        _same([s.range(starts, limit=limit, k_max=kmax, max_leaves=ml) for s in stores], f"range k_max {step}")
         rs = [s.range_with_state(starts[:256], limit=64, max_leaves=1, max_rounds=1) for s in stores]
-        same(rs, f"bounded {step}")
+        _same(rs, f"bounded {step}")
         m = rs[0].truncated
         if m.any():
-            same([s.range_with_state(starts[:256][m], limit=64, max_leaves=1, start_leaves=r.cursor_leaf[m])
+            _same([s.range_with_state(starts[:256][m], limit=64, max_leaves=1, start_leaves=r.cursor_leaf[m])
                   for s, r in zip(stores, rs)], f"resumed {step}")
         if step % 4 == 3:
-            same([np.array(s.flush()) for s in stores], f"flush {step}")
+            _same([np.array(s.flush()) for s in stores], f"flush {step}")
         n_ops += 8
-    same([s.items() for s in stores], "items")
+    _same([s.items() for s in stores], "items")
     a, b = stores
-    assert dataclasses.asdict(a.stats) == dataclasses.asdict(b.stats), "stats"
-    for to_np, fa, fb in (
-        (carry.tree_to_numpy, a.tree, b.tree),
-        (carry.ib_to_numpy, a.ib, b.ib),
-        (carry.cache_to_numpy, a.cache, b.cache),
-        (carry.scan_cache_to_numpy, a.scan_cache, b.scan_cache),
-    ):
-        xa, xb = to_np(fa), to_np(fb)
-        for f in xa:
-            assert np.array_equal(xa[f], xb[f]), f"state {f}"
+    _same_state(a, b)
     emit({"phase": "parity", "keys": PARITY_KEYS, "op_waves": n_ops, "identical": True,
           "flush_cycles": a.stats.flush_cycles, "cache_hits": a.stats.cache_hits,
           "scan_hits": a.stats.scan_hits, "range_rounds_in_mesh": a.stats.range_rounds_in_mesh})
+    del stores, a, b
+    versioned_parity(torch, dev)
 
     paged_phase(torch, dev, kernels)
 

@@ -21,9 +21,9 @@ epochs accept only ``None``.  ``as_of`` selects a *version* epoch — a
 point-in-time read against the snapshot named by ``snapshot_epoch()``,
 served from the bounded multi-version window kept when the store was built
 with ``retain_epochs > 0``; reads past the retained horizon raise
-:class:`~repro.core.epoch.EpochRetiredError` (re-exported here).  ``ttl``
+:class:`~repro_torch.core.epoch.EpochRetiredError` (re-exported here).  ``ttl``
 stamps written keys with a logical-clock deadline (see
-``repro.core.ttl.TTLTracker``): expired keys read as absent and are
+``repro_torch.core.ttl.TTLTracker``): expired keys read as absent and are
 physically reclaimed by the ``ttl_sweep()`` compaction pass.  Divergent
 legacy spellings keep working through :func:`warn_legacy` shims that emit
 ``DeprecationWarning``.
@@ -49,7 +49,7 @@ def warn_legacy(method: str, old: str, new: str) -> None:
     points the warning at the caller of the store method, not the shim."""
     warnings.warn(
         f"{method}: {old} is deprecated; use {new} "
-        f"(canonical KVStore signature, see repro.core.api)",
+        f"(canonical KVStore signature, see repro_torch.core.api)",
         DeprecationWarning,
         stacklevel=3,
     )

@@ -8,7 +8,9 @@ ids as int32.  Internally the u32 limbs are widened to int64 before any
 compare or subtraction (see ``keys.py``).
 
 The CUDA kernels in ``repro_torch.kernels`` compute the same functions; the
-``ops`` layer sends CUDA tensors to them and CPU tensors here.
+``ops`` layer sends CUDA tensors to them and CPU tensors here.  The
+point-in-time reads at the end of the file (``as_of``) have no kernel in
+either package: they run as plain torch on whatever device holds the tree.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from .keys import floor_to_i32_saturating, limb_eq, limb_le, limb_sub_to_f32, u32
+from .keys import floor_to_i32_saturating, limb_eq, limb_le, limb_sub_to_f32, to_i32, u32
 from .tree import DeviceTree
 
 # insert-buffer op codes
@@ -327,6 +329,7 @@ def continuation_loop(
     limit: int,
     max_rounds: int = 0,
     hard_cap: int,
+    advance_kmin: bool = False,
 ):
     """Drive ``round_fn`` (one bounded walk: ``(start, khi, klo) -> (keys,
     vals, valid, truncated, cursor)``) until every lane hit ``limit``,
@@ -336,6 +339,13 @@ def continuation_loop(
     Here it is a Python round loop: the first round always runs, and every
     later round costs one host sync (``active.any()``).  The round count,
     the accumulators and the cursor equal the reference's exactly.
+
+    ``advance_kmin`` (versioned scans): after each round, a lane that
+    emitted keys moves its ``k_min`` to its last emitted key + 1, with the
+    carry from the low limb into the high one.  A versioned round reads
+    each walked leaf through its resolved ancestor, whose key range can
+    reach below the walked window; the advance keeps rounds disjoint.  The
+    final cursor still falls back to the original ``k_min``.
 
     ``max_rounds=0`` loops until quiescence (bounded by ``hard_cap``);
     ``max_rounds>=1`` stops early and reports the leftover lanes
@@ -351,10 +361,11 @@ def continuation_loop(
     acc_n = torch.zeros((B,), dtype=torch.int64, device=dev)
     cur = start_leaf.to(torch.int32)
     active = torch.ones((B,), dtype=torch.bool, device=dev)
+    rhi, rlo = khi, klo  # each round's k_min (moves only with advance_kmin)
     rounds = 0
     while B and rounds < cap_rounds and (rounds == 0 or bool(active.any())):
         start = torch.where(active, cur, -1)
-        rk, rv, rvalid, rtrunc, cursor = round_fn(start, khi, klo)
+        rk, rv, rvalid, rtrunc, cursor = round_fn(start, rhi, rlo)
         # owned-window clip: entries at/above ub prove the window exhausted
         beyond = limb_le(ubh, ubl, u32(rk[..., 0]), u32(rk[..., 1]))
         clipped = rvalid & beyond
@@ -370,6 +381,13 @@ def continuation_loop(
         acc_v.scatter_(1, t2, torch.where(m, rv, 0))
         acc_n = torch.clamp(acc_n + rc, max=limit)
         active = active & rtrunc & (acc_n < limit)
+        if advance_kmin:
+            # last emitted key + 1 in int64, carried into the high limb
+            lo1 = (u32(cursor.klo) + 1) & 0xFFFFFFFF
+            hi1 = (u32(cursor.khi) + (lo1 == 0).to(torch.int64)) & 0xFFFFFFFF
+            emitted = rc > 0
+            rlo = torch.where(emitted, to_i32(lo1), rlo)
+            rhi = torch.where(emitted, to_i32(hi1), rhi)
         cur = cursor.leaf
         rounds += 1
     out_keys = acc_k[:, :limit].contiguous()
@@ -415,4 +433,116 @@ def range_batch_loop(
         limit=limit,
         max_rounds=max_rounds,
         hard_cap=hard_cap_rounds(tree, max_leaves),
+    )
+
+
+# ---------------------------------------------------------------------------
+# point-in-time reads (as_of=epoch): serve a frozen snapshot through the
+# CURRENT tree.  The store builds a host-side resolve table for epoch E
+# (res_table[l] walks the leaf version chain back while the version was born
+# after E); here each visited leaf's content is read through its resolved
+# ancestor, whose rows epoch retention keeps intact.  Insert buffers are
+# skipped: a version epoch is a stitched state (snapshot_epoch flushes).
+# ---------------------------------------------------------------------------
+
+
+def take(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]`` under the reference's gather rule: a negative id is
+    raised by ``len(table)`` once, then every id is clamped to
+    ``[0, len(table) - 1]`` (torch indexing would raise on the CPU and is
+    undefined on CUDA)."""
+    n = table.shape[0]
+    i = idx.long()
+    i = torch.where(i < 0, i + n, i)
+    return table[torch.clamp(i, 0, n - 1)]
+
+
+def get_batch_versioned(tree: DeviceTree, res_table, khi, klo, *, depth: int, eps_inner: int, eps_leaf: int):
+    """GET against the epoch pinned by ``res_table``: the live descent, the
+    leaf resolved to its epoch-E version, then that leaf's HBM row.  Returns
+    (vhi, vlo, found); not-found rows carry leaf residue, as in the
+    reference."""
+    leaf = take(res_table, traverse(tree, khi, klo, depth=depth, eps_inner=eps_inner))
+    _, found, vhi, vlo = leaf_search(tree, leaf, khi, klo, eps_leaf)
+    return vhi, vlo, found
+
+
+def range_batch_from_versioned(tree: DeviceTree, res_table, start_leaf, khi, klo, *, limit: int, max_leaves: int = 4):
+    """One bounded versioned walk: follow the CURRENT ``leaf_next`` chain but
+    gather each visited leaf's content from its resolved ancestor.  Overlaps
+    between ancestors are removed by the key sort and first-occurrence
+    dedup; no insert-buffer overlay and no tombstones.  Outputs as
+    :func:`range_batch_from`."""
+    assert limit >= 1, "limit=0 is guarded by the callers"
+    B = khi.shape[0]
+    dev = khi.device
+    parts = []
+    leaf = start_leaf.long()
+    alive = start_leaf >= 0
+    for _ in range(max_leaves):
+        safe = torch.clamp(leaf, min=0)
+        r = take(res_table, safe)
+        slot = take(tree.leaf_slot, r)
+        lk = take(tree.hbm_keys, slot)  # (B,128,2): epoch-E bytes (rows survive)
+        lv = take(tree.hbm_vals, slot)
+        lvalid = (torch.arange(lk.shape[1], device=dev)[None, :] < take(tree.leaf_count, r)[:, None]) & alive[:, None]
+        parts.append((lk, lv, lvalid))
+        nxt = take(tree.leaf_next, safe).long()
+        alive = alive & (nxt >= 0)
+        leaf = nxt
+
+    keys = u32(torch.cat([p[0] for p in parts], dim=1))
+    vals = torch.cat([p[1] for p in parts], dim=1)
+    valid = torch.cat([p[2] for p in parts], dim=1)
+    kh, kl = keys[..., 0], keys[..., 1]
+    live = valid & limb_le(u32(khi)[:, None], u32(klo)[:, None], kh, kl)
+    kh = torch.where(live, kh, 0xFFFFFFFF)
+    kl = torch.where(live, kl, 0xFFFFFFFF)
+    # ``jnp.lexsort((kl, kh))``: one stable sort of the key folded into an
+    # order-preserving int64
+    order = torch.sort((kh - 2**31) * 4294967296 + kl, dim=1, stable=True).indices
+    out_keys, out_vals, out_valid, n_found = compact_sorted(
+        kh.gather(1, order),
+        kl.gather(1, order),
+        vals[..., 0].gather(1, order),
+        vals[..., 1].gather(1, order),
+        live.gather(1, order),
+        torch.zeros_like(live),
+        limit,
+    )
+    truncated = alive & (n_found < limit)
+    cursor = make_cursor(khi, klo, out_keys, n_found, leaf, truncated)
+    return out_keys, out_vals, out_valid, truncated, cursor
+
+
+def range_batch_loop_versioned(
+    tree: DeviceTree,
+    res_table,
+    start_leaf,
+    khi,
+    klo,
+    ub_hi,
+    ub_lo,
+    *,
+    limit: int,
+    max_leaves: int = 4,
+    max_rounds: int = 0,
+):
+    """Multi-round versioned RANGE: :func:`range_batch_from_versioned`
+    rounds driven by :func:`continuation_loop` with the k_min advance on."""
+
+    def round_fn(start, h, l):
+        return range_batch_from_versioned(tree, res_table, start, h, l, limit=limit, max_leaves=max_leaves)
+
+    return continuation_loop(
+        round_fn,
+        start_leaf,
+        khi,
+        klo,
+        ub_hi,
+        ub_lo,
+        limit=limit,
+        max_rounds=max_rounds,
+        hard_cap=hard_cap_rounds(tree, max_leaves),
+        advance_kmin=True,
     )

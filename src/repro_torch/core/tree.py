@@ -194,7 +194,9 @@ class TreeImage:
     # -- device export ----------------------------------------------------
     def to_device(self, device) -> DeviceTree:
         def i32(a):
-            return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(device)
+            # always a copy: on the CPU ``.to`` keeps the memory, and the
+            # device pools must not alias the host image the patcher edits
+            return torch.from_numpy(np.array(a, dtype=np.int32)).to(device)
 
         def f32(a):
             return torch.from_numpy(np.asarray(a, dtype=np.float32)).to(device)

@@ -362,3 +362,41 @@ def test_probe_kernel_equals_plain_in_every_shape(cuda_device, W, P, n_buckets):
                 assert all(torch.equal(a, b) for a, b in zip(got, want))
     sm = build.sm_count(cuda_device.index or 0)  # both shapes the plan picks ran above
     assert [cache_probe.probe_plan(B, 4, 2, True, sm).design for B in (300, 65536)] == ["vector", "lean"]
+
+
+@pytest.mark.cuda
+def test_card_equals_cpu_on_a_versioned_ttl_stream(cuda_device):
+    """Point-in-time reads, TTL expiry, the sweep and the write fast path on
+    the card == on the CPU: every answer, ``items()`` and every counter."""
+    import dataclasses
+
+    from repro_torch.core import DPAStore, TreeConfig, datasets
+
+    keys = datasets.sparse(3000, seed=2)
+    keys[::2] |= np.uint64(0xFFFFFFFF)  # leaves ending on a low limb of all ones
+    keys = np.unique(keys)
+    stores = [DPAStore(keys, keys ^ np.uint64(0x77), TreeConfig(growth=64.0), retain_epochs=40, device=d)
+              for d in (cuda_device, "cpu")]
+    out = [[] for _ in stores]
+    for i, s in enumerate(stores):
+        r = np.random.default_rng(5)
+        ttl_keys = r.choice(keys, 300, replace=False)
+        s.put(ttl_keys, ttl_keys ^ np.uint64(3), ttl=2)
+        e0 = s.snapshot_epoch()
+        s.put(keys[::4], keys[::4] ^ np.uint64(9))
+        s.delete(keys[1::9])
+        w = s.write_issue("put", keys[2:6], keys[2:6])
+        out[i].append(None if w is None else s.write_finalize(w))
+        s.ttl.tick(2)
+        q = r.choice(keys, 500)
+        out[i] += [*s.get(q), *s.get(q, as_of=e0)]
+        for as_of in (None, e0):
+            res = s.range(q[:200], limit=12, as_of=as_of)
+            out[i] += [res.keys, res.vals, res.counts]
+        out[i].append(np.array([s.ttl_sweep()]))
+        res = s.range_with_state(q[:64], limit=40, max_leaves=1, max_rounds=1, as_of=e0)
+        out[i] += [res.keys, res.counts, res.cursor_leaf, res.cursor_key]
+        out[i] += [*s.items()]
+    for a, b in zip(*out):
+        np.testing.assert_array_equal(a, b)
+    assert dataclasses.asdict(stores[0].stats) == dataclasses.asdict(stores[1].stats)

@@ -134,14 +134,23 @@ def test_bulk_load_via_stitch_matches_to_device():
         np.testing.assert_array_equal(ta[f], tb[f], err_msg=f)
 
 
-def test_slice_scope_raises():
+def test_retention_and_ttl_calls_match_the_reference():
+    """The calls the first slice refused now behave as in the JAX package:
+    ``as_of`` on a store without a window raises ``EpochRetiredError``,
+    ``put(..., ttl=)`` returns the same statuses, and a store with a
+    retention window builds."""
+    from repro.core.epoch import EpochRetiredError as JaxEpochRetiredError
+    from repro_torch.core import EpochRetiredError
+
     keys = sparse(300, seed=7)
     t = DPAStore(keys, keys, device="cpu")
-    with pytest.raises(NotImplementedError):
-        t.get(keys[:3], as_of=1)
-    with pytest.raises(NotImplementedError):
-        t.put(keys[:3], keys[:3], ttl=5)
-    with pytest.raises(NotImplementedError):
-        t.range(keys[:3], as_of=1)
-    with pytest.raises(NotImplementedError):
-        DPAStore(keys, keys, device="cpu", retain_epochs=2)
+    j = JaxStore(keys, keys)
+    for call in (lambda s: s.get(keys[:3], as_of=1), lambda s: s.range(keys[:3], as_of=1)):
+        with pytest.raises(EpochRetiredError):
+            call(t)
+        with pytest.raises(JaxEpochRetiredError):
+            call(j)
+    np.testing.assert_array_equal(t.put(keys[:3], keys[:3], ttl=5), j.put(keys[:3], keys[:3], ttl=5))
+    assert t.ttl.deadlines == j.ttl.deadlines
+    r = DPAStore(keys, keys, device="cpu", retain_epochs=2)
+    assert r.epochs.retain == 2 and r.snapshot_epoch() == 0
