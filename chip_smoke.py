@@ -40,11 +40,38 @@ Phases, one JSON line each (any mismatch raises and exits non-zero):
                keys dead) or its copy frozen at the snapshot; B1-B3 must run
                on the live filtered waves.  One filtered RANGE wave and an
                ``as_of`` GET and RANGE wave also run under ``torch.profiler``.
+   frontend — the serving front end on phase 3's store (before the versioned
+               phase): ``launch/serve.py``'s ``serve_kv`` loop (per 4 waves
+               2 GET waves of 65536 zipf keys, an UPDATE of the first 16384
+               of a draw, repeats included, a RANGE of 64 starts) through
+               ``PipelinedStore`` at queue depth 1, then 2, 64 waves each;
+               every answer against the oracle, B1-B3 launched in each run;
+               requests/s, waves by kind, serial-path write waves, flush
+               cycles, the ledger's issue and drain us per wave and overlap,
+               and ``perfmodel.pipelined_wave_mops``; then 8 waves at depth
+               2 under the pipeline's ``torch.profiler`` trace (wall,
+               device ms and busy share, launches, the spans' CPU time).
+   tenants  — the 4-tenant deployment of ``launch/serve.py`` (``--tenants 4
+               --tenant-rate 0:2048 --tenant-weights 0:0.5 --max-delay 4``,
+               1024-row waves) on phase 3's keys re-encoded into tenant
+               slabs: 512 iterations of ``serve_kv_tenants``' request mix
+               through ``KVWaveDriver``, every admitted reply against the
+               oracle (RANGE rows clipped at the tenant's ceiling and
+               decoded), no cross-tenant row, B1-B3 launched.
 4. parity   — the same seeded op stream on a 200k-key store on the card and
                on the CPU: responses and final state tensors identical; then
                a second pair with a retention window (TTL puts, ticks, two
                snapshots, ``as_of`` reads and a bounded resume, the sweep,
                extract / compact / ingest, the write fast path).
+               ``frontend-parity``: twin 1M-key stores on the card,
+               ``serve_kv``'s script (32 waves of 8192) run serially and
+               through ``PipelinedStore(queue_depth=2)`` with every ticket
+               redeemed at the end: identical answers, ``items()`` and
+               counters.  ``serve-cli``: ``python -m
+               repro_torch.launch.serve`` run twice as a user runs it, at
+               1M keys (``--retain-epochs 64 --ttl 4``, and the 4-tenant
+               command): exit 0 with the snapshot's bitwise match and zero
+               cross-tenant leaks.
 5. paged    — the paged KV cache path at one llama3-405b attention layer's
                widths (128 query heads, 8 KV heads, head_dim 128, bf16 pools
                of 65536 blocks of 16 tokens: 4 GiB for K and V).  The page
@@ -112,6 +139,18 @@ VERSIONED_SLICE = 2**54  # extract_slice width: 1/1024 of the u64 key space
 # the second parity pair: retention and headroom as in tests/test_versioned.py
 PARITY_RETAIN, PARITY_GROWTH = 40, 64.0
 NO_DEADLINE = np.iinfo(np.int64).max  # the oracle's deadline of a key without a TTL
+# the front end: launch/serve.py's serve_kv loop at the service config's
+# scale (dpastore_service.py: 50M keys, 65536-request waves), per depth
+FRONTEND_WAVES = 64  # waves per queue depth: 2 GET, 1 UPDATE, 1 RANGE in every 4
+FRONTEND_PROFILED = 8  # waves at depth 2 under torch.profiler
+FRONTEND_RANGE = 64  # RANGE starts per wave (serve.py: q[:64], limit 10)
+# frontend-parity: twin 1M-key stores over serve_kv's script with submit lag
+FRONT_PARITY_KEYS, FRONT_PARITY_WAVES, FRONT_PARITY_WAVE = 1_000_000, 32, 8192
+# the 4-tenant deployment of launch/serve.py:36-40 (--tenants 4 --tenant-rate
+# 0:2048 --tenant-weights 0:0.5 --max-delay 4, --wave-size left at 1024)
+TENANTS, TENANT_RATE, TENANT_WEIGHT0, TENANT_DELAY, TENANT_WAVE = 4, 2048.0, 0.5, 4, 1024
+TENANT_ITERS = 512  # loop iterations of serve_kv_tenants' request mix, a drain every 4
+CLI_KEYS = 1_000_000  # the serve-cli phase's stores
 
 
 def emit(obj) -> None:
@@ -784,6 +823,358 @@ def versioned_phase(torch, dev, keys, vals) -> None:
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------ serving front end
+
+
+class _LiveRows:
+    """The front end's answers from the oracle, whose live rows are taken
+    again only when a write revives a deleted key (the front end deletes
+    nothing and sets no TTL, so ``alive`` is what reads see)."""
+
+    def __init__(self, oracle):
+        assert oracle.deadline is None, "the front end's oracle carries no TTL"
+        self.oracle = oracle
+        self.idx = np.flatnonzero(oracle.alive)
+        self.keys = oracle.keys[self.idx]
+
+    def put(self, ks, vs):
+        revived = not self.oracle.alive[self.oracle.pos(ks)].all()
+        self.oracle.put(ks, vs)  # duplicates carry one value: any order wins the same
+        if revived:
+            self.__init__(self.oracle)
+
+    def expect_get(self, q):
+        o = self.oracle
+        p = np.minimum(np.searchsorted(o.keys, q), o.keys.size - 1)
+        f = (o.keys[p] == q) & o.alive[p]
+        return np.where(f, o.vals[p], 0), f
+
+    def expect_range(self, starts, limit):
+        cols = np.searchsorted(self.keys, starts)[:, None] + np.arange(limit)[None, :]
+        ok = cols < self.keys.size
+        c = np.minimum(cols, self.keys.size - 1)
+        return np.where(ok, self.keys[c], 0), np.where(ok, self.oracle.vals[self.idx[c]], 0), ok.sum(axis=1)
+
+
+def _front_script(live, draws, w0, n):
+    """``serve_kv``'s waves ``w0 .. w0+n`` (2 GET, 1 UPDATE of the first
+    quarter, repeats included, 1 RANGE of 64 starts in every 4) with the
+    answers the oracle expects, the UPDATEs applied in order."""
+    script = []
+    for w in range(w0, w0 + n):
+        q = draws[w * WAVE : (w + 1) * WAVE]
+        if w % 4 < 2:
+            script.append(("get", q, live.expect_get(q)))
+        elif w % 4 == 2:
+            upd = q[: WAVE // 4]
+            live.put(upd, upd)
+            script.append(("put", upd, None))
+        else:
+            starts = q[:FRONTEND_RANGE]
+            script.append(("range", starts, live.expect_range(starts, 10)))
+    return script
+
+
+def _front_drive(pipe, script):
+    """Submit the script through ``pipe`` and redeem as ``serve_kv`` does
+    (all but ``queue_depth - 1`` tickets, in order).  Returns the results
+    and the write waves that took the serial path."""
+    results, pending, serial = [], [], 0
+    for op, q, _ in script:
+        if op == "get":
+            t = pipe.submit_get(q)
+        elif op == "put":
+            t = pipe.submit_put(q, q)
+            serial += t.ctx[0] == "serial"  # the ticket is in flight: its context is live
+        else:
+            t = pipe.submit_range(q, 10, max_leaves=4)
+        pending.append(t)
+        while len(pending) > pipe.queue_depth - 1:
+            results.append(pipe.result(pending.pop(0)))
+    while pending:
+        results.append(pipe.result(pending.pop(0)))
+    return results, serial
+
+
+def _front_check(script, results, what):
+    for i, ((op, q, want), got) in enumerate(zip(script, results, strict=True)):
+        if op == "get":
+            assert (got[1] == want[1]).all() and (got[0] == want[0]).all(), f"{what}: GET wave {i}"
+        elif op == "put":
+            assert (got == 0).all(), f"{what}: UPDATE wave {i} statuses"
+        else:
+            for f, x in zip(("keys", "vals", "counts"), want):
+                assert (getattr(got, f) == x).all(), f"{what}: RANGE wave {i} {f}"
+
+
+def frontend_phase(torch, st, oracle, keys) -> None:
+    """The serving front end on phase 3's store: ``serve_kv``'s loop through
+    ``PipelinedStore`` at queue depths 1 and 2, every answer against the
+    oracle, B1-B3 launched in each run; then ``FRONTEND_PROFILED`` waves at
+    depth 2 under the pipeline's ``torch.profiler`` trace."""
+    import tempfile
+
+    from repro_torch.core import datasets, perfmodel
+    from repro_torch.kernels import build
+    from repro_torch.serving.pipeline import PipelinedStore
+
+    t_phase = time.perf_counter()
+    n_total = 2 * FRONTEND_WAVES + FRONTEND_PROFILED
+    draws = keys[datasets.zipf_indices(keys.size, n_total * WAVE, alpha=ZIPF, seed=SEED + 9)]
+    draw_s = time.perf_counter() - t_phase
+    live = _LiveRows(oracle)
+    script_s = 0.0  # the oracle's answers, computed before each timed run
+    upd = draws[2 * WAVE : 2 * WAVE + WAVE // 4]  # the first UPDATE wave's keys
+    t = time.perf_counter()
+    plan = st._write_plan(upd)  # the host proof a write wave takes before its issue
+    write_plan_ms = (time.perf_counter() - t) * 1e3
+    runs = {}
+    for i, qd in enumerate((1, 2)):
+        t0 = time.perf_counter()
+        script = _front_script(live, draws, i * FRONTEND_WAVES, FRONTEND_WAVES)
+        script_s += time.perf_counter() - t0
+        pipe = PipelinedStore(st, queue_depth=qd)
+        c0 = st.stats.flush_cycles
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        results, serial = _front_drive(pipe, script)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(build.launches)
+        _front_check(script, results, f"frontend depth {qd}")
+        for k in ("get", "cache_probe_p2", "cache_probe_p1", "range_walk"):
+            assert launches[k] > 0, f"kernel {k} was not launched through the pipeline at depth {qd}"
+        kinds = [r.kind for r in pipe.ledger.records]
+        n_req = sum(q.size for _, q, _ in script)
+        s = pipe.pipeline_summary()
+        runs[qd] = {
+            "waves": len(script), "requests": n_req, "wall_s": wall, "requests_per_s": n_req / wall,
+            "served_per_s": len(script) * WAVE / wall,  # serve.py's count: wave_size a wave
+            "waves_by_kind": {k: kinds.count(k) for k in sorted(set(kinds))},
+            "serial_write_waves": serial, "fast_write_waves": kinds.count("put") - serial,
+            "flush_cycles": st.stats.flush_cycles - c0, "pipeline": s,
+            "host_roofline_mops": perfmodel.pipelined_wave_mops(
+                WAVE, s["issue_us_per_wave"], s["drain_us_per_wave"], qd),
+            "launches": launches,
+        }
+    # the same traffic at depth 2 under the pipeline's own trace
+    script = _front_script(live, draws, 2 * FRONTEND_WAVES, FRONTEND_PROFILED)
+    pipe = PipelinedStore(st, queue_depth=2)
+    build.reset_launches()
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as log_dir:
+        with pipe.pipeline.trace(log_dir):
+            t0 = time.perf_counter()
+            results, serial = _front_drive(pipe, script)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+        trace_stop_s = time.perf_counter() - t0  # profiler stop and Chrome trace export
+        trace_mb = sum(f.stat().st_size for f in Path(log_dir).iterdir()) / 1e6
+    _front_check(script, results, "frontend profiled")
+    t0 = time.perf_counter()
+    ev = pipe.pipeline.last_trace.key_averages()
+    key_averages_s = time.perf_counter() - t0
+    # the pipeline's spans also appear on the device's timeline as user
+    # annotations: they are not device work
+    span = f"{pipe.pipeline.name}/"
+    dev = [e for e in ev if e.device_type == torch.autograd.DeviceType.CUDA and not e.key.startswith(span)]
+    dev_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    spans = {}
+    for e in ev:
+        if e.key.startswith(span) and e.device_type == torch.autograd.DeviceType.CPU:
+            _, kind, ph = e.key.split("/")
+            key = f"{kind}_{ph.split('#')[0]}_ms"
+            spans[key] = spans.get(key, 0.0) + e.cpu_time_total / 1e3
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
+    r1, r2 = runs[1]["requests_per_s"], runs[2]["requests_per_s"]
+    emit({
+        "phase": "frontend", "keys": int(keys.size), "wave": WAVE, "waves_per_depth": FRONTEND_WAVES,
+        "mix": "serve_kv: 2 GET of 65536, UPDATE of the first 16384 (repeats), RANGE of 64 (limit 10, 4 leaves)",
+        "depth1": runs[1], "depth2": runs[2], "requests_per_s_ratio_2_to_1": r2 / r1,
+        "write_plan_ms_16384_keys": write_plan_ms, "write_plan_fast": plan is not None,
+        "draw_s": draw_s, "oracle_script_s": script_s,
+        "profiled": {
+            "waves": len(script), "wall_ms": wall_ms, "device_ms": dev_ms, "device_busy": dev_ms / wall_ms,
+            "device_launches": sum(e.count for e in dev), "serial_write_waves": serial,
+            "span_cpu_ms": spans, "trace_mb": trace_mb, "trace_stop_s": trace_stop_s,
+            "key_averages_s": key_averages_s, "launches": dict(build.launches),
+            "top": [[e.key[:70], e.self_device_time_total / 1e3, e.count] for e in top],
+        },
+        "oracle": "all GET, UPDATE and RANGE answers equal", "seconds": time.perf_counter() - t_phase,
+    })
+
+
+def frontend_parity(torch, dev) -> None:
+    """Twin 1M-key stores on the card: ``serve_kv``'s script run serially on
+    one and through ``PipelinedStore(queue_depth=2)`` on the other, with
+    every ticket redeemed only at the end.  Everything must be identical."""
+    from repro_torch.core import DPAStore, datasets
+    from repro_torch.serving.pipeline import PipelinedStore
+
+    t_phase = time.perf_counter()
+    W = FRONT_PARITY_WAVE
+    pkeys = datasets.sparse(FRONT_PARITY_KEYS, seed=SEED + 10)
+    pvals = pkeys ^ np.uint64(0xC0FFEE)
+    serial, piped = (DPAStore(pkeys, pvals, device=dev) for _ in range(2))
+    pipe = PipelinedStore(piped, queue_depth=2)
+    idx = datasets.zipf_indices(pkeys.size, FRONT_PARITY_WAVES * W, alpha=ZIPF, seed=SEED + 11)
+    want, tickets = [], []
+    for w in range(FRONT_PARITY_WAVES):
+        q = pkeys[idx[w * W : (w + 1) * W]]
+        if w % 4 < 2:
+            want.append(serial.get(q))
+            tickets.append(pipe.submit_get(q))
+        elif w % 4 == 2:
+            upd = q[: W // 4]
+            want.append(serial.put(upd, upd))
+            tickets.append(pipe.submit_put(upd, upd))
+        else:
+            want.append(serial.range(q[:FRONTEND_RANGE], limit=10))
+            tickets.append(pipe.submit_range(q[:FRONTEND_RANGE], 10))
+    got = [pipe.result(t) for t in tickets]
+    for i, (a, b) in enumerate(zip(want, got, strict=True)):
+        _same([a, b], f"frontend-parity wave {i}")
+    _same([serial.items(), pipe.items()], "frontend-parity items")
+    for f in ("flush_cycles", "puts", "gets", "ranges", "stitch_applies"):
+        assert getattr(serial.stats, f) == getattr(piped.stats, f), f"frontend-parity {f}"
+    s = pipe.pipeline_summary()
+    assert s["overlap_frac"] > 0 and serial.stats.flush_cycles > 0
+    emit({"phase": "frontend-parity", "keys": FRONT_PARITY_KEYS, "waves": FRONT_PARITY_WAVES, "wave": W,
+          "queue_depth": 2, "identical": True, "flush_cycles": serial.stats.flush_cycles,
+          "pipeline": s, "seconds": time.perf_counter() - t_phase})
+    del serial, piped, pipe
+
+
+def tenants_phase(torch, dev, keys) -> None:
+    """The 4-tenant deployment of ``launch/serve.py`` on phase 3's keys
+    re-encoded into tenant slabs (about 50M keys): ``TENANT_ITERS``
+    iterations of ``serve_kv_tenants``' request mix through ``KVWaveDriver``
+    with the documented admission and deadline settings.  Every admitted
+    reply is held against the oracle, ops applied in ticket order and RANGE
+    rows clipped at the tenant's ceiling and decoded to local keys."""
+    from repro_torch.core import DPAStore, TreeConfig
+    from repro_torch.core import keys as keymod
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve
+    from repro_torch.serving.admission import ADMIT_OK, ADMIT_RETRY, AdmissionController, TenantPolicy
+    from repro_torch.serving.engine import KVWaveDriver
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    local, ek, ev = serve.tenant_slabs(keys, TENANTS)
+    slabs_s = time.perf_counter() - t_phase
+    t0 = time.perf_counter()
+    st = DPAStore(ek, ev, TreeConfig(), device=dev)  # default caches and scan cache, as the launcher
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    oracle = Oracle(ek, ev)  # no key dies here: every encoded key stays live
+    ceil = {t: keymod.tenant_ceil(t) for t in range(TENANTS)}
+    adm = AdmissionController({t: TenantPolicy(rate=TENANT_RATE if t == 0 else 0.0,
+                                               weight=TENANT_WEIGHT0 if t == 0 else 1.0) for t in range(TENANTS)})
+    drv = KVWaveDriver(st, queue_depth=2, wave_size=TENANT_WAVE, max_delay=TENANT_DELAY, admission=adm,
+                       tenant_bits=keymod.TENANT_BITS, max_leaves=4)
+    rng = np.random.default_rng(0)
+    tw = serve.tenant_weights(TENANTS)
+    sent = {}  # ticket -> (op, tenant, local keys, vals)
+    retries = {t: 0 for t in range(TENANTS)}
+    checked = {"get": 0, "put": 0, "range": 0}
+    wall = check_s = 0.0
+
+    def check(replies):
+        nonlocal check_s
+        t_check = time.perf_counter()
+        for rep in replies:  # ticket order: the order the ops took effect
+            op, t, q, v = sent.pop(rep.ticket)
+            if rep.status == ADMIT_RETRY:
+                retries[t] += 1
+                continue
+            assert rep.status == ADMIT_OK and rep.tenant == t and rep.op == op
+            enc = keymod.encode_tenant(t, q)
+            if op == "get":
+                got, found = rep.result
+                assert found.all() and (got == oracle.vals[oracle.pos(enc)]).all(), f"tenant GET {rep.ticket}"
+            elif op == "put":
+                assert (rep.result == 0).all(), f"tenant PUT {rep.ticket}"
+                oracle.put(enc, v)
+            else:
+                cols = np.searchsorted(ek, enc)[:, None] + np.arange(10)[None, :]
+                c = np.minimum(cols, ek.size - 1)
+                ok = (cols < ek.size) & (ek[c] < ceil[t])
+                res = rep.result
+                assert (res.counts == ok.sum(axis=1)).all(), f"tenant RANGE {rep.ticket} counts"
+                assert (res.keys == np.where(ok, keymod.decode_tenant(ek[c])[1], 0)).all(), f"RANGE {rep.ticket} keys"
+                assert (res.vals == np.where(ok, oracle.vals[c], 0)).all(), f"tenant RANGE {rep.ticket} vals"
+            checked[op] += 1
+        check_s += time.perf_counter() - t_check
+
+    build.reset_launches()
+    for w in range(TENANT_ITERS):
+        t0 = time.perf_counter()
+        for _ in range(max(TENANTS, 2)):
+            op, t, q, v = serve.tenant_request(rng, local, tw, TENANT_WAVE, w)
+            tk = drv.request(op, q, v, limit=10, tenant=t)
+            sent[tk] = (op, t, q, v)
+        drv.tick()
+        replies = drv.drain() if (w + 1) % 4 == 0 else []
+        torch.cuda.synchronize()
+        wall += time.perf_counter() - t0
+        check(replies)
+    t0 = time.perf_counter()
+    replies = drv.drain()
+    torch.cuda.synchronize()
+    wall += time.perf_counter() - t0
+    check(replies)
+    launches = dict(build.launches)
+    assert not sent, "every request must be answered"
+    for k in ("get", "cache_probe_p2", "cache_probe_p1", "range_walk"):
+        assert launches[k] > 0, f"kernel {k} was not launched through the tenant scheduler"
+    s = drv.scheduler_summary()
+    assert s["leaked_rows"] == 0, "cross-tenant RANGE rows"
+    n_keys_served = sum(s["rows_served"].values())
+    emit({
+        "phase": "tenants", "keys": int(ek.size), "tenants": TENANTS, "tenant_keys": [int(x.size) for x in local],
+        "wave_size": TENANT_WAVE, "rate0": TENANT_RATE, "weight0": TENANT_WEIGHT0, "max_delay": TENANT_DELAY,
+        "iterations": TENANT_ITERS, "slabs_s": slabs_s, "store_build_s": build_s, "wall_s": wall,
+        "check_s": check_s,
+        "keys_served_per_s": n_keys_served / wall, "waves": s["waves"], "seals": s["seals"],
+        "retries": retries, "rows_served": s["rows_served"], "leaked_rows": s["leaked_rows"],
+        "replies_checked": checked, "admission": s["admission"], "pipeline": drv.pipeline_summary(),
+        "launches": launches, "oracle": "every admitted reply equal", "seconds": time.perf_counter() - t_phase,
+    })
+    del drv, st, oracle, ek, ev, local
+    torch.cuda.empty_cache()
+
+
+def serve_cli_phase() -> None:
+    """``python -m repro_torch.launch.serve`` on the card, as a user runs it:
+    the versioned/TTL command and the 4-tenant command at 1M keys.  Each
+    must exit 0 and print its snapshot match or zero-leak line."""
+    import os
+
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    n = str(CLI_KEYS)
+    runs = []
+    for argv, must in (
+        (["--kv", "--n-keys", n, "--waves", "16", "--wave-size", "8192", "--retain-epochs", "64", "--ttl", "4"],
+         "-> bitwise match"),
+        (["--kv", "--n-keys", n, "--tenants", str(TENANTS), "--tenant-rate", f"0:{int(TENANT_RATE)}",
+          "--tenant-weights", f"0:{TENANT_WEIGHT0}", "--max-delay", str(TENANT_DELAY)],
+         "cross-tenant leaks=0"),
+    ):
+        t = time.perf_counter()
+        p = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", *argv], cwd=root, env=env,
+                           capture_output=True, text=True, timeout=300)
+        sec = time.perf_counter() - t
+        if p.returncode != 0 or must not in p.stdout:
+            raise AssertionError(f"serve {' '.join(argv)}: exit {p.returncode}\n{p.stdout[-3000:]}{p.stderr[-3000:]}")
+        lines = [ln for ln in p.stdout.splitlines() if "stats:" not in ln]
+        runs.append({"argv": argv, "exit": p.returncode, "seconds": sec, "out": lines})
+    emit({"phase": "serve-cli", "runs": runs})
+
+
 # ----------------------------------------------------------- paged phase
 
 
@@ -1235,11 +1626,15 @@ def main() -> int:
     # ---- where one wave's time goes (torch.profiler) ------------------------
     profile_wave(torch, "get", W, lambda: st.get(draw(W)))
     profile_wave(torch, "range", W, lambda: st.range(draw(W), limit=10))
+
+    # ---- the serving front end on the same store -----------------------------
+    frontend_phase(torch, st, oracle, keys)
     del st, oracle, zipf
     torch.cuda.empty_cache()
 
-    # ---- the versioned phase, on the same keys -------------------------------
+    # ---- the versioned phase and the tenant deployment, on the same keys -----
     versioned_phase(torch, dev, keys, vals)
+    tenants_phase(torch, dev, keys)
     del keys, vals
 
     # ---- 4. the card against the CPU ---------------------------------------
@@ -1284,6 +1679,8 @@ def main() -> int:
           "scan_hits": a.stats.scan_hits, "range_rounds_in_mesh": a.stats.range_rounds_in_mesh})
     del stores, a, b
     versioned_parity(torch, dev)
+    frontend_parity(torch, dev)
+    serve_cli_phase()
 
     paged_phase(torch, dev, kernels)
 

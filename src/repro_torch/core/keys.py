@@ -136,3 +136,89 @@ def limb_hash_np(keys_u64: np.ndarray, salt: int = 0) -> np.ndarray:
         h = h * np.uint32(0x846CA68B)
         h = h ^ (h >> np.uint32(16))
     return h
+
+
+# ---------------------------------------------------------------------------
+# tenant namespaces: a tenant id in the top bits of the u64 key
+# ---------------------------------------------------------------------------
+#
+# The prefix rides the most significant bits, so every tenant owns one
+# contiguous slab [tenant_floor, tenant_ceil) of the global ordered key
+# space: GET/PUT/DELETE route unchanged and a RANGE stays one ordered scan
+# clipped at the tenant's ceiling.  For bits <= 32 the prefix lives wholly
+# in the hi limb: encode is ``hi' = (tid << (32 - bits)) | hi``, lo untouched.
+
+TENANT_BITS = 8  # default namespace width: up to 256 tenants
+
+
+def _check_bits(bits: int) -> int:
+    if not (1 <= int(bits) <= 32):
+        raise ValueError(f"tenant prefix must use 1..32 bits, got {bits}")
+    return int(bits)
+
+
+def tenant_capacity(bits: int = TENANT_BITS) -> int:
+    """Number of tenant namespaces a ``bits``-wide prefix can hold."""
+    return 1 << _check_bits(bits)
+
+
+def tenant_span_bits(bits: int = TENANT_BITS) -> int:
+    """Width of each tenant's local key space (64 - prefix bits)."""
+    return 64 - _check_bits(bits)
+
+
+def encode_tenant(tid: int, keys, bits: int = TENANT_BITS) -> np.ndarray:
+    """Pack tenant ``tid`` into the top ``bits`` of local u64 ``keys``.
+    Raises ``ValueError`` when ``tid`` does not fit the prefix or a local
+    key does not fit the remaining ``64 - bits`` (a silent wrap would leak
+    it into a neighbour's slab)."""
+    bits = _check_bits(bits)
+    if not (0 <= int(tid) < (1 << bits)):
+        raise ValueError(f"tenant id {tid} out of range for {bits}-bit prefix (capacity {1 << bits})")
+    keys = np.atleast_1d(np.asarray(keys, dtype=np.uint64))
+    limbs = split_u64(keys)
+    hi = limbs[..., 0]
+    if np.any(hi >> np.uint32(32 - bits)):
+        raise ValueError(f"local key(s) exceed the {64 - bits}-bit tenant namespace")
+    limbs[..., 0] = hi | np.uint32(int(tid) << (32 - bits))
+    return join_u64(limbs)
+
+
+def decode_tenant(keys, bits: int = TENANT_BITS):
+    """Inverse of :func:`encode_tenant`: ``(tenant ids, local keys)``."""
+    bits = _check_bits(bits)
+    keys = np.atleast_1d(np.asarray(keys, dtype=np.uint64))
+    limbs = split_u64(keys)
+    hi = limbs[..., 0]
+    tids = (hi >> np.uint32(32 - bits)).astype(np.int64)
+    limbs[..., 0] = hi & np.uint32((1 << (32 - bits)) - 1)
+    return tids, join_u64(limbs)
+
+
+def tenant_floor(tid: int, bits: int = TENANT_BITS) -> np.uint64:
+    """Inclusive floor of tenant ``tid``'s slab of the global key space."""
+    return encode_tenant(tid, np.uint64(0), bits)[0]
+
+
+def tenant_ceil(tid: int, bits: int = TENANT_BITS) -> np.uint64:
+    """Exclusive ceiling of tenant ``tid``'s slab: the ``k_max`` a RANGE
+    clips at.  The last tenant's true ceiling, 2^64, does not fit, so
+    ``KEY_MAX`` stands in; it excludes only the reserved sentinel."""
+    bits = _check_bits(bits)
+    if not (0 <= int(tid) < (1 << bits)):
+        raise ValueError(f"tenant id {tid} out of range for {bits}-bit prefix")
+    if int(tid) == (1 << bits) - 1:
+        return KEY_MAX
+    return tenant_floor(int(tid) + 1, bits)
+
+
+def tenant_of_np(keys, bits: int = TENANT_BITS) -> np.ndarray:
+    """Tenant id of each encoded u64 key (host mirror of ``limb_tenant``)."""
+    return decode_tenant(keys, bits)[0]
+
+
+def limb_tenant(hi: torch.Tensor, bits: int = TENANT_BITS) -> torch.Tensor:
+    """Tenant id (int32) of int32-held hi limbs.  The limb is widened first:
+    a shift of the int32 itself would be arithmetic and turn every id at or
+    above 2^(bits-1) negative."""
+    return (u32(hi) >> (32 - _check_bits(bits))).to(torch.int32)

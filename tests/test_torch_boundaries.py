@@ -39,7 +39,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 def test_importing_the_port_loads_no_jax():
     code = (
         "import sys, repro_torch, repro_torch.core, repro_torch.kernels.ops, "
-        "repro_torch.core.carry, repro_torch.core.datasets, repro_torch.serving.engine; "
+        "repro_torch.core.carry, repro_torch.core.datasets, repro_torch.core.perfmodel, "
+        "repro_torch.serving.engine, repro_torch.serving.pipeline, repro_torch.serving.admission, "
+        "repro_torch.launch.serve; "
         "assert 'jax' not in sys.modules and 'repro' not in sys.modules, sorted(sys.modules)"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -400,3 +402,61 @@ def test_card_equals_cpu_on_a_versioned_ttl_stream(cuda_device):
     for a, b in zip(*out):
         np.testing.assert_array_equal(a, b)
     assert dataclasses.asdict(stores[0].stats) == dataclasses.asdict(stores[1].stats)
+
+
+@pytest.mark.cuda
+def test_pipelined_equals_serial_on_the_card(cuda_device):
+    """``PipelinedStore`` at depths 2 and 4 over a store on the card ==
+    the same store run serially, with tickets redeemed only at the end
+    (every flush lands between in-flight waves): each output, ``items()``
+    and every counter but the ledger's times."""
+    import dataclasses
+
+    from repro_torch.core import DPAStore, TreeConfig
+    from repro_torch.serving.pipeline import PipelinedStore
+
+    rng = np.random.default_rng(12)
+    keys = np.unique(rng.integers(1, 2**63, 400, dtype=np.uint64))
+    script = []
+    for i in range(24):
+        q = rng.integers(1, 2**63, 24, dtype=np.uint64)
+        kind = ("get", "put", "range", "delete", "put", "flush")[i % 6]
+        script.append((kind, np.unique(q) if kind in ("put", "delete") else q, int(rng.choice([1, 7, 40]))))
+    script.append(("put", np.arange(keys[200] + 1, keys[200] + 41, dtype=np.uint64), 0))  # fills buffers: serial
+    for qd in (2, 4):
+        serial, piped = (DPAStore(keys, keys ^ np.uint64(0xD1FF), TreeConfig(growth=16.0), device=cuda_device)
+                         for _ in range(2))
+        pipe = PipelinedStore(piped, queue_depth=qd)
+        want, got = [], [None] * len(script)
+        tickets = []
+        for i, (kind, q, limit) in enumerate(script):
+            if kind == "get":
+                want.append(serial.get(q))
+                tickets.append((i, pipe.submit_get(q)))
+            elif kind == "put":
+                want.append(serial.put(q, q ^ np.uint64(0xF)))
+                tickets.append((i, pipe.submit_put(q, q ^ np.uint64(0xF))))
+            elif kind == "delete":
+                want.append(serial.delete(q[:12]))
+                tickets.append((i, pipe.submit_delete(q[:12])))
+            elif kind == "range":
+                want.append(tuple(serial.range(q[:12], limit=limit, max_leaves=1)))
+                tickets.append((i, pipe.submit_range(q[:12], limit, max_leaves=1)))
+            else:
+                want.append(serial.flush())
+                got[i] = pipe.flush()
+        for i, t in tickets:
+            got[i] = pipe.result(t)
+            got[i] = tuple(got[i]) if script[i][0] == "range" else got[i]
+        for i, (a, b) in enumerate(zip(want, got)):
+            if isinstance(a, tuple):
+                assert all(np.array_equal(x, y) for x, y in zip(a, b, strict=True)), (qd, i)
+            else:
+                assert np.array_equal(a, b), (qd, i)
+        for a, b in zip(serial.items(), pipe.items()):
+            assert np.array_equal(a, b)
+        sa, sb = dataclasses.asdict(serial.stats), dataclasses.asdict(piped.stats)
+        for f in ("wave_issue_ns", "wave_drain_ns", "cache_hits", "scan_hits", "scan_probes", "scan_cursor_admits"):
+            sa.pop(f), sb.pop(f)
+        assert sa == sb, qd
+        assert serial.stats.flush_cycles > 0 and pipe.pipeline_summary()["overlap_frac"] > 0
