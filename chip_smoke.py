@@ -44,7 +44,7 @@ Phases, one JSON line each (any mismatch raises and exits non-zero):
                phase): ``launch/serve.py``'s ``serve_kv`` loop (per 4 waves
                2 GET waves of 65536 zipf keys, an UPDATE of the first 16384
                of a draw, repeats included, a RANGE of 64 starts) through
-               ``PipelinedStore`` at queue depth 1, then 2, 64 waves each;
+               ``PipelinedStore`` at queue depth 1, then 2, 32 waves each;
                every answer against the oracle, B1-B3 launched in each run;
                requests/s, waves by kind, serial-path write waves, flush
                cycles, the ledger's issue and drain us per wave and overlap,
@@ -58,6 +58,22 @@ Phases, one JSON line each (any mismatch raises and exits non-zero):
                through ``KVWaveDriver``, every admitted reply against the
                oracle (RANGE rows clipped at the tenant's ceiling and
                decoded), no cross-tenant row, B1-B3 launched.
+   sharded  — the replicated range tier on phase 3's 50M keys (after the
+               tenants phase): ``launch/serve.py --partition range --shards
+               4 --replication 2 --kill-primary-at 8 --rebalance
+               --rebalance-every 4`` with the single store's hot cache, 16
+               waves of 65536 through ``PipelinedStore(queue_depth=2)`` (2
+               zipf GET waves, a storm of 16384 sequential fresh keys and a
+               RANGE of 64 starts in every 4), shard 0's primary killed after
+               wave 7 and rebuilt at wave 8, ``maybe_rebalance`` every 4
+               waves (trigger scaled to 50M keys).  Every answer against the
+               oracle, every acknowledged write read back from every in-sync
+               replica, each group's replicas equal, the groups' pairs equal
+               to the oracle's; B1-B3 launched.  Then ``stacked()`` (seconds,
+               bytes), ``serve_wave_emulated`` on (4, 16384) requests at an
+               ample cap and at one it overflows (RETRY rows, every other row
+               equal to the oracle) and ``range_wave_emulated`` on (4, 16)
+               starts (limit 10, fan-out 2), timed.
 4. parity   — the same seeded op stream on a 200k-key store on the card and
                on the CPU: responses and final state tensors identical; then
                a second pair with a retention window (TTL puts, ticks, two
@@ -67,11 +83,23 @@ Phases, one JSON line each (any mismatch raises and exits non-zero):
                ``serve_kv``'s script (32 waves of 8192) run serially and
                through ``PipelinedStore(queue_depth=2)`` with every ticket
                redeemed at the end: identical answers, ``items()`` and
-               counters.  ``serve-cli``: ``python -m
-               repro_torch.launch.serve`` run twice as a user runs it, at
-               1M keys (``--retain-epochs 64 --ttl 4``, and the 4-tenant
-               command): exit 0 with the snapshot's bitwise match and zero
-               cross-tenant leaks.
+               counters.  ``sharded-parity``: twin 600k-key facades on the
+               card and on the CPU, the range tier (2 shards x R=2) and the
+               hash tier (4 shards), one seeded stream each (GET, PUT,
+               DELETE, RANGE with ``k_max``/``fanout``/one leaf a round, the
+               issue and finalize halves, a bounded resume, a primary kill,
+               retire and recovery, a rebalance with reads under both
+               epochs, reshards 2 -> 4 -> 3, TTL puts and the sweep, chain
+               compaction, ``as_of``, both emulated waves, a snapshot
+               restored at another shard count): everything identical.
+               ``serve-cli``: ``python -m repro_torch.launch.serve`` run as
+               a user runs it, at 1M keys: ``--retain-epochs 64 --ttl 4``,
+               the 4-tenant command and the four sharded commands (hash;
+               range with ``--rebalance``; ``--replication 2
+               --kill-primary-at 8``; ``--shards 2 --reshard-to 4
+               --snapshot-dir``), each exit 0 with its report lines; the
+               snapshot restores through ``restore_store`` at 3 shards with
+               the snapshot's pairs as ``items()``.
 5. paged    — the paged KV cache path at one llama3-405b attention layer's
                widths (128 query heads, 8 KV heads, head_dim 128, bf16 pools
                of 65536 blocks of 16 tokens: 4 GiB for K and V).  The page
@@ -141,7 +169,7 @@ PARITY_RETAIN, PARITY_GROWTH = 40, 64.0
 NO_DEADLINE = np.iinfo(np.int64).max  # the oracle's deadline of a key without a TTL
 # the front end: launch/serve.py's serve_kv loop at the service config's
 # scale (dpastore_service.py: 50M keys, 65536-request waves), per depth
-FRONTEND_WAVES = 64  # waves per queue depth: 2 GET, 1 UPDATE, 1 RANGE in every 4
+FRONTEND_WAVES = 32  # waves per queue depth: 2 GET, 1 UPDATE, 1 RANGE in every 4 (64 before the sharded phases)
 FRONTEND_PROFILED = 8  # waves at depth 2 under torch.profiler
 FRONTEND_RANGE = 64  # RANGE starts per wave (serve.py: q[:64], limit 10)
 # frontend-parity: twin 1M-key stores over serve_kv's script with submit lag
@@ -151,6 +179,28 @@ FRONT_PARITY_KEYS, FRONT_PARITY_WAVES, FRONT_PARITY_WAVE = 1_000_000, 32, 8192
 TENANTS, TENANT_RATE, TENANT_WEIGHT0, TENANT_DELAY, TENANT_WAVE = 4, 2048.0, 0.5, 4, 1024
 TENANT_ITERS = 512  # loop iterations of serve_kv_tenants' request mix, a drain every 4
 CLI_KEYS = 1_000_000  # the serve-cli phase's stores
+# the sharded deployment of src/repro/launch/serve.py:15-22 (--partition range --shards
+# 4 --replication 2 --kill-primary-at 8, with --rebalance --rebalance-every 4)
+SHARDS, REPLICAS = 4, 2
+# serve_kv's loop: per 4 waves 2 GET, a fresh-insert storm, a RANGE.  Cut
+# from 32 waves: each storm takes ~14 s (~1024 retry flush cycles on each
+# replica, PERF.md section 6)
+SHARDED_WAVES = 16
+SHARDED_KILL_AT = 8  # shard 0's primary dies after wave 7; retire and recovery at wave 8
+SHARDED_REBALANCE_EVERY = 4
+# the planner's occupancy trigger scaled to 50M keys: the default 1.4 would
+# need ~5M fresh keys on one shard, the loop writes 16384 a storm; 1.0025
+# fires after 3 storms (49152 keys) and not after 2.  A 2^22-key reservoir
+# keeps the refit's own sampling spread (~0.1 %) under the trigger
+SHARDED_TRIGGER, SHARDED_SAMPLE = 1.0025, 1 << 22
+SHARDED_EMU_W = 16384  # serve_wave_emulated: (4, 16384) requests
+SHARDED_EMU_CAP_SMALL = 2048  # a per-(src, dest) cap the wave overflows
+SHARDED_PARITY_GROWTH, SHARDED_PARITY_RETAIN = 16.0, 8  # headroom for retention, migration and reshards
+# sharded-parity's keys: 600k keep every shard (150k-300k keys) at depth 3 through
+# the stream's reshards; at 200k the 100k-key shards sit at the depth-2 limit
+# (896 leaves), the storm's splits would deepen one of them, and stacked()
+# refuses mixed depths, as the reference's does
+SHARDED_PARITY_KEYS = 600_000
 
 
 def emit(obj) -> None:
@@ -1147,32 +1197,457 @@ def tenants_phase(torch, dev, keys) -> None:
     torch.cuda.empty_cache()
 
 
-def serve_cli_phase() -> None:
+# ------------------------------------------------------ sharded tiers
+
+
+class _StormOracle:
+    """The range tier's answers with ``serve_kv``'s fresh-insert storms
+    applied: the loaded keys, then the storm keys, which all lie above them
+    in ascending order (value = key, as ``serve.py`` writes), so the live
+    key space stays one sorted run."""
+
+    def __init__(self, keys, vals):
+        self.keys, self.vals = keys, vals
+        self.storms = []
+        self.storm_keys = np.zeros(0, dtype=np.uint64)
+
+    def put_storm(self, ks):
+        assert ks[0] > (self.storm_keys[-1] if self.storm_keys.size else self.keys[-1])
+        self.storms.append(ks)
+        self.storm_keys = np.concatenate(self.storms)
+
+    def expect_get(self, q):
+        p = np.minimum(np.searchsorted(self.keys, q), self.keys.size - 1)
+        f = self.keys[p] == q
+        return np.where(f, self.vals[p], 0), f
+
+    def expect_range(self, starts, limit):
+        n, m = self.keys.size, self.storm_keys.size
+        j = np.searchsorted(self.keys, starts)
+        j = np.where(j < n, j, n + np.searchsorted(self.storm_keys, starts))  # a start past the loaded keys
+        cols = j[:, None] + np.arange(limit)[None, :]
+        in_keys = cols < n
+        in_storm = ~in_keys & (cols < n + m)
+        ck = np.minimum(cols, n - 1)
+        cs = np.clip(cols - n, 0, max(m - 1, 0))
+        sk = self.storm_keys[cs] if m else np.zeros_like(cols, dtype=np.uint64)
+        k = np.where(in_keys, self.keys[ck], np.where(in_storm, sk, 0))
+        v = np.where(in_keys, self.vals[ck], np.where(in_storm, sk, 0))
+        return k, v, (in_keys | in_storm).sum(axis=1)
+
+    def items(self):
+        return np.concatenate([self.keys, self.storm_keys]), np.concatenate([self.vals, self.storm_keys])
+
+
+def _check_range(res, want, what):
+    for f, x in zip(("keys", "vals", "counts"), want):
+        assert (getattr(res, f) == x).all(), f"{what}: RANGE {f}"
+
+
+def _timed_wave(torch, fn, reps: int = 3):
+    """Host wall ms of one synchronised call (median of ``reps``), and its
+    outputs: the emulated waves loop over shards on the host."""
+    out, times = None, []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return out, float(np.median(times))
+
+
+def sharded_phase(torch, dev, keys, vals, smi: str) -> None:
+    """The replicated range tier on phase 3's 50M keys: ``launch/serve.py
+    --partition range --shards 4 --replication 2 --kill-primary-at 8`` with
+    ``--rebalance --rebalance-every 4`` at 65536-request waves through
+    ``PipelinedStore(queue_depth=2)``, every answer against the oracle; then
+    the device waves over ``stacked()``."""
+    from repro_torch.core import CacheConfig, TreeConfig, datasets
+    from repro_torch.core.keys import KEY_MAX, limbs_to_tensor, split_u64
+    from repro_torch.distributed.kvshard import ShardedDPAStore, serve_wave_emulated, stacked_bytes
+    from repro_torch.distributed.rangeshard import make_route_fn, range_wave_emulated
+    from repro_torch.distributed.rebalance import RebalanceConfig
+    from repro_torch.kernels import build
+    from repro_torch.serving.pipeline import PipelinedStore
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    W = WAVE
+    t0 = time.perf_counter()
+    # the hot cache a single store has by default (the facade's default is
+    # none): each shard's GET then runs B2 (P=2) before B1, as phase 3's
+    store = ShardedDPAStore(keys, vals, SHARDS, TreeConfig(), cache_cfg=CacheConfig(), partition="range",
+                            replication=REPLICAS, device=dev,
+                            rebalance_cfg=RebalanceConfig(spread_trigger=SHARDED_TRIGGER, sample_size=SHARDED_SAMPLE))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    oracle = _StormOracle(keys, vals)
+    draws = keys[datasets.zipf_indices(keys.size, SHARDED_WAVES * W, alpha=ZIPF, seed=SEED + 12)]
+    pipe = PipelinedStore(store, queue_depth=2)
+    pending, events, rebalances = [], [], []
+    n_req = 0
+    recovery_s = None
+    fresh_base = keys.max()
+
+    def collect(force=False):
+        while len(pending) > (0 if force else 1):
+            kind, t, want, i = pending.pop(0)
+            res = pipe.result(t)
+            if kind == "get":
+                assert (res[1] == want[1]).all() and (res[0] == want[0]).all(), f"sharded GET wave {i}"
+            elif kind == "put":
+                assert (res == 0).all(), f"sharded storm wave {i}: not every write acked"
+            else:
+                _check_range(res, want, f"sharded wave {i}")
+
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t_loop = time.perf_counter()
+    for w in range(SHARDED_WAVES):
+        q = draws[w * W : (w + 1) * W]
+        if w % 4 < 2:
+            pending.append(("get", pipe.submit_get(q), oracle.expect_get(q), w))
+            n_req += q.size
+        elif w % 4 == 2:  # serve.py's sequential fresh-insert storm (--rebalance)
+            newk = fresh_base + np.uint64(1) + np.arange(W // 4, dtype=np.uint64) * np.uint64(3)
+            fresh_base = newk.max()
+            oracle.put_storm(newk)
+            pending.append(("put", pipe.submit_put(newk, newk), None, w))
+            n_req += newk.size
+        else:
+            starts = q[:FRONTEND_RANGE]
+            pending.append(("range", pipe.submit_range(starts, 10, max_leaves=4), oracle.expect_range(starts, 10), w))
+            n_req += starts.size
+        collect()
+        if w + 1 == SHARDED_KILL_AT:
+            promoted = pipe.kill_replica(0)  # shard 0's primary; a barrier
+            events.append({"wave": w, "killed": "shard 0 primary", "promoted": promoted,
+                           "epoch": store.boundary_epoch})
+        elif w == SHARDED_KILL_AT:
+            pipe.retire_failover()
+            t0 = time.perf_counter()
+            plan = pipe.recover_replicas()
+            torch.cuda.synchronize()
+            recovery_s = time.perf_counter() - t0
+            events.append({"wave": w, "rebuilt": plan.n_rebuilds, "recovery_s": recovery_s})
+        if (w + 1) % SHARDED_REBALANCE_EVERY == 0:
+            t0 = time.perf_counter()
+            rep = pipe.maybe_rebalance()
+            if rep is not None:
+                rebalances.append({"wave": w, "seconds": time.perf_counter() - t0, **rep})
+    collect(force=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_loop
+    launches = dict(build.launches)
+    for k in ("get", "cache_probe_p2", "cache_probe_p1", "range_walk"):
+        assert launches[k] > 0, f"kernel {k} was not launched on the sharded tier"
+    assert store.failovers == 1 and store.recoveries == 1, "the failover and the recovery must happen"
+    assert rebalances and store.migrated_keys > 0, "the rebalance must happen"
+    storm = oracle.storm_keys
+    assert store.client_writes == store.acked_writes == storm.size
+    # every acknowledged write reads back from every in-sync replica
+    t0 = time.perf_counter()
+    dest = store.route_np(storm)
+    readback = 0
+    for s in range(store.n_shards):
+        m = dest == s
+        for r in store._in_sync(s):
+            v, f = store.groups[s][r].get(storm[m])
+            assert f.all() and (v == storm[m]).all(), f"acked writes on shard {s} replica {r}"
+            readback += int(m.sum())
+    # the replicas of each group hold the same pairs, and the groups
+    # together hold exactly the oracle's (items() without its Python dict)
+    parts = []
+    for s, g in enumerate(store.groups):
+        snaps = [st.snapshot_slice(0, KEY_MAX) for st in g]
+        for k, v in snaps[1:]:
+            assert np.array_equal(k, snaps[0][0]) and np.array_equal(v, snaps[0][1]), f"replicas of group {s}"
+        parts.append(snaps[0])
+    ok, ov = oracle.items()
+    assert np.array_equal(np.concatenate([p[0] for p in parts]), ok), "sharded keys"
+    assert np.array_equal(np.concatenate([p[1] for p in parts]), ov), "sharded values"
+    check_s = time.perf_counter() - t0
+    # the device waves over the stacked serving replicas
+    t0 = time.perf_counter()
+    tree, ib, depth = store.stacked()
+    torch.cuda.synchronize()
+    stack_s = time.perf_counter() - t0
+    stack_b = stacked_bytes(tree, ib)
+    rng = np.random.default_rng(SEED + 13)
+    qs = np.concatenate([rng.choice(keys, SHARDS * SHARDED_EMU_W - 4096), rng.choice(storm, 2048),
+                         rng.integers(0, 2**64 - 1, 2048, dtype=np.uint64)])
+    rng.shuffle(qs)
+    qs = qs.reshape(SHARDS, SHARDED_EMU_W)
+    lq = limbs_to_tensor(split_u64(qs), dev)
+    khi, klo = lq[..., 0].contiguous(), lq[..., 1].contiguous()
+    route = make_route_fn(store.boundaries)
+    allk, allv = oracle.items()
+    p = np.minimum(np.searchsorted(allk, qs), allk.size - 1)
+    exp_f = allk[p] == qs
+    exp_v = np.where(exp_f, allv[p], 0)
+    emu = {}
+    for name, cap in (("ample", SHARDED_EMU_W), ("overflow", SHARDED_EMU_CAP_SMALL)):
+        build.reset_launches()
+        out, ms = _timed_wave(torch, lambda: serve_wave_emulated(
+            tree, ib, khi, klo, cap=cap, depth=depth, eps_inner=store.cfg.eps_inner, eps_leaf=store.cfg.eps_leaf,
+            route_fn=route))
+        assert build.launches["get"] == 3 * SHARDS, "serve_wave_emulated: one B1 launch per shard"
+        vh, vl, fd, okm = (x.cpu().numpy() for x in out)
+        v = (vh.view(np.uint32).astype(np.uint64) << np.uint64(32)) | vl.view(np.uint32)
+        assert okm.all() == (name == "ample"), f"serve wave {name}: ok"
+        assert (fd[okm] == exp_f[okm]).all() and (v[okm] == exp_v[okm]).all(), f"serve wave {name}"
+        assert not fd[~okm].any(), f"serve wave {name}: a RETRY row carries an answer"
+        emu[f"serve_{name}"] = {"cap": cap, "ms": ms, "retry_rows": int((~okm).sum()),
+                                "requests": int(qs.size), "found": int(fd.sum())}
+    starts = qs[:, :16]
+    ls = limbs_to_tensor(split_u64(starts), dev)
+    build.reset_launches()
+    out, ms = _timed_wave(torch, lambda: range_wave_emulated(
+        tree, ib, ls[..., 0].contiguous(), ls[..., 1].contiguous(), store.boundaries, cap=32, depth=depth,
+        eps_inner=store.cfg.eps_inner, limit=10, fanout=2))
+    assert build.launches["range_walk"] >= 3 * SHARDS, "range_wave_emulated: B3 on every shard"
+    kh, kl, vh, vl, valid, okm, trunc, rounds = (x.cpu().numpy() for x in out)
+    assert okm.all() and not trunc.any()
+    ek, ev, ec = oracle.expect_range(starts.reshape(-1), 10)
+    j64 = lambda h, l: (h.view(np.uint32).astype(np.uint64) << np.uint64(32)) | l.view(np.uint32)  # noqa: E731
+    assert (valid.sum(axis=-1).reshape(-1) == ec).all(), "range wave counts"
+    assert (np.where(valid, j64(kh, kl), 0).reshape(-1, 10) == ek).all(), "range wave keys"
+    assert (np.where(valid, j64(vh, vl), 0).reshape(-1, 10) == ev).all(), "range wave vals"
+    emu["range"] = {"starts": int(starts.size), "limit": 10, "fanout": 2, "ms": ms, "rounds": rounds.tolist()}
+    del tree, ib
+    spread = store.occupancy_spread(flush=True)
+    by_kind = {}
+    for r in pipe.ledger.records:  # host seconds of issue + drain, per wave kind
+        k = by_kind.setdefault(r.kind, {"waves": 0, "s": 0.0})
+        k["waves"] += 1
+        k["s"] += (r.issue_ns + r.drain_ns) / 1e9
+    emit({
+        "phase": "sharded", "nvidia_smi": smi, "keys": int(keys.size), "shards": SHARDS, "replication": REPLICAS,
+        "sub_stores": SHARDS * REPLICAS, "waves": SHARDED_WAVES, "wave": W,
+        "mix": "serve_kv --rebalance: 2 GET of 65536 zipf, a storm of 16384 sequential fresh keys, RANGE of 64",
+        "rebalance_cfg": {"spread_trigger": SHARDED_TRIGGER, "sample_size": SHARDED_SAMPLE},
+        "build_s": build_s, "wall_s": wall, "requests": n_req, "requests_per_s": n_req / wall,
+        "served_per_s": SHARDED_WAVES * W / wall,
+        "shard_drain_s": (store.shard_drain_ns / 1e9).tolist(), "events": events, "recovery_s": recovery_s,
+        "rebalances": rebalances, "migrated_keys": store.migrated_keys,
+        "range_fanout": store.range_subqueries / max(store.range_requests, 1),
+        "range_rounds_in_mesh": store.range_rounds_in_mesh, "range_reissues": store.range_reissues,
+        "write_amplification": store.write_amplification, "client_writes": store.client_writes,
+        "acked_writes": store.acked_writes, "replica_writes": store.replica_writes,
+        "acked_read_back": readback, "occupancy": spread, "boundary_epoch": store.boundary_epoch,
+        "pipeline": pipe.pipeline_summary(), "wave_s_by_kind": by_kind,
+        "flush_cycles": store.stats_totals()["flush_cycles"], "launches": launches, "check_s": check_s,
+        "stacked_s": stack_s, "stacked_bytes": stack_b, "emulated": emu,
+        "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "oracle": "every answer, every acked write on every in-sync replica, replicas equal, content equal",
+        "seconds": time.perf_counter() - t_phase,
+    })
+    del pipe, store, oracle, draws
+    torch.cuda.empty_cache()
+
+
+def _sharded_stream(torch, pair, part, pkeys, prng, snap_dir):
+    """One seeded op stream on twin facades (the card's, the CPU's): every
+    answer compared.  Returns the number of compared calls."""
+    from repro_torch.core.keys import limbs_to_tensor, split_u64
+    from repro_torch.distributed import kvshard, rangeshard, snapshot
+
+    n = 0
+
+    def both(name, *args, **kw):
+        nonlocal n
+        outs = [getattr(s, name)(*args, **kw) for s in pair]
+        _same(outs, f"{part}: {name}")
+        n += 1
+        return outs
+
+    def waves():
+        nonlocal n
+        stacks = [s.stacked() for s in pair]
+        S = pair[0].n_shards
+        qs = np.concatenate([prng.choice(pkeys, S * 900), prng.integers(0, 2**64 - 1, S * 124, dtype=np.uint64)])
+        qs = qs.reshape(S, 1024)
+        route = rangeshard.make_route_fn(pair[0].boundaries) if part == "range" else None
+        for cap in (1024, 96):
+            outs = []
+            for (tree, ib, depth), s in zip(stacks, pair):
+                l = limbs_to_tensor(split_u64(qs), s.device)
+                outs.append(tuple(x.cpu().numpy() for x in kvshard.serve_wave_emulated(
+                    tree, ib, l[..., 0].contiguous(), l[..., 1].contiguous(), cap=cap, depth=depth,
+                    eps_inner=4, eps_leaf=8, route_fn=route)))
+            _same(outs, f"{part}: serve wave cap {cap}")
+            n += 1
+            if part == "range":
+                outs = []
+                for (tree, ib, depth), s in zip(stacks, pair):
+                    l = limbs_to_tensor(split_u64(qs[:, :64]), s.device)
+                    outs.append(tuple(x.cpu().numpy() for x in rangeshard.range_wave_emulated(
+                        tree, ib, l[..., 0].contiguous(), l[..., 1].contiguous(), s.boundaries, cap=cap // 8,
+                        depth=depth, eps_inner=4, limit=16, max_leaves=2, fanout=2, max_rounds=cap // 512)))
+                _same(outs, f"{part}: range wave cap {cap}")
+                n += 1
+
+    def reads(q, epoch=None):
+        both("get", q, epoch=epoch)
+        both("range", q[:512], 10, epoch=epoch)
+
+    for step in range(4):
+        q = np.concatenate([prng.choice(pkeys, 3000), prng.integers(0, 2**64 - 1, 500, dtype=np.uint64)])
+        reads(q)
+        newk = prng.integers(1, 2**63, 1200, dtype=np.uint64)
+        both("put", newk, newk ^ np.uint64(step + 1))
+        both("delete", prng.choice(pkeys, 400))
+        starts = q[:512]
+        both("range", starts, 40, max_leaves=1, k_max=starts + np.uint64(2**52))
+        if part == "range":
+            both("range", starts, 20, fanout=2)
+        _same([s.get_finalize(s.get_issue(q[:2048])) for s in pair], f"{part}: get halves")
+        _same([s.range_finalize(s.range_issue(starts, 10)) for s in pair], f"{part}: range halves")
+        ks = prng.choice(pkeys, 256)
+        ws = [s.write_issue("put", ks, ks ^ np.uint64(7)) for s in pair]
+        assert (ws[0] is None) == (ws[1] is None)
+        if ws[0] is not None:
+            _same([s.write_finalize(w) for s, w in zip(pair, ws)], f"{part}: write halves")
+        else:
+            both("put", ks, ks ^ np.uint64(7))
+        # a bounded resume on the serving store of shard 0, as the facade's host fallback runs it
+        rs = [s.shards[0].range_with_state(starts, limit=64, max_leaves=1, max_rounds=1) for s in pair]
+        _same(rs, f"{part}: bounded")
+        m = rs[0].truncated
+        if m.any():
+            _same([s.shards[0].range_with_state(starts[m], limit=64, max_leaves=1, start_leaves=r.cursor_leaf[m])
+                   for s, r in zip(pair, rs)], f"{part}: resumed")
+        both("put", ks[:64], ks[:64], ttl=2)  # TTL puts
+        if step == 1:
+            both("flush")
+            waves()
+        if part == "range" and step == 1:
+            both("kill_replica", 0)
+            reads(q, epoch=pair[0].boundary_epoch - 1)
+            both("retire_failover")
+            both("recover_replicas")
+            storm = pkeys.max() + np.uint64(1) + np.arange(3000, dtype=np.uint64) * np.uint64(3)
+            both("put", storm, storm)
+            nb = pair[0].planner.propose(pair[0].boundaries)
+            both("begin_rebalance", nb)
+            reads(q, epoch=pair[0].boundary_epoch - 1)
+            reads(q)
+            both("commit_rebalance")
+        if part == "range" and step == 2:
+            both("reshard", 4)
+            reads(q)
+            both("reshard", 3)
+        for s in pair:
+            s.ttl.tick(1)
+    both("ttl_sweep")
+    both("compact_chain")
+    both("stub_count")
+    e = both("snapshot_epoch")[0]
+    both("put", pkeys[:100], pkeys[:100] ^ np.uint64(1))
+    q = prng.choice(pkeys, 2048)
+    both("get", q, as_of=e)
+    both("range", q[:256], 10, as_of=e)
+    waves()
+    _same([s.items() for s in pair], f"{part}: items")
+    for c in ("range_requests", "range_subqueries", "range_reissues", "range_rounds_in_mesh", "client_writes",
+              "replica_writes", "acked_writes", "failovers", "recoveries", "rebalances", "migrated_keys",
+              "reshards", "resharded_keys", "n_shards", "boundary_epoch"):
+        assert getattr(pair[0], c) == getattr(pair[1], c), f"{part}: {c}"
+    assert pair[0].stats_totals() == pair[1].stats_totals(), f"{part}: stats_totals"
+    # a snapshot of the card's facade restores at another shard count, on the card and on the CPU
+    snapshot.save_snapshot(pair[0], snap_dir)
+    n_other = 2 if pair[0].n_shards != 2 else 3
+    restored = [snapshot.restore_store(snap_dir, n_shards=n_other, device=s.device) for s in pair]
+    want = pair[0].items()
+    for r in restored:
+        _same([r.items(), want], f"{part}: restored at {n_other} shards")
+    return n
+
+
+def sharded_parity(torch, dev) -> None:
+    """Twin 600k-key facades on the card and on the CPU, for the
+    replicated range tier (R=2, 2 shards, resharded 2 -> 4 -> 3) and the
+    hash tier (4 shards): one seeded op stream each, every answer,
+    ``items()`` and counter identical."""
+    import tempfile
+
+    from repro_torch.core import CacheConfig, TreeConfig, datasets
+    from repro_torch.distributed.kvshard import ShardedDPAStore
+    from repro_torch.kernels import build
+
+    t_phase = time.perf_counter()
+    pkeys = datasets.sparse(SHARDED_PARITY_KEYS, seed=SEED + 14)
+    pvals = pkeys ^ np.uint64(0x51AB)
+    calls = {}
+    build.reset_launches()
+    for part, n_shards, R in (("range", 2, 2), ("hash", 4, 1)):
+        pair = [ShardedDPAStore(pkeys, pvals, n_shards, TreeConfig(growth=SHARDED_PARITY_GROWTH), partition=part,
+                                cache_cfg=CacheConfig(), replication=R, retain_epochs=SHARDED_PARITY_RETAIN, device=d)
+                for d in (dev, "cpu")]
+        with tempfile.TemporaryDirectory() as d:
+            calls[part] = _sharded_stream(torch, pair, part, pkeys, np.random.default_rng(SEED + 15), Path(d))
+        del pair
+    launches = dict(build.launches)
+    for k in ("get", "cache_probe_p2", "cache_probe_p1", "range_walk"):
+        assert launches[k] > 0, f"sharded-parity: kernel {k} did not run on the card"
+    emit({"phase": "sharded-parity", "keys": SHARDED_PARITY_KEYS, "tiers": {"range": "2 shards x R=2, resharded 2->4->3",
+          "hash": "4 shards"}, "compared_calls": calls, "identical": True, "launches": launches,
+          "seconds": time.perf_counter() - t_phase})
+
+
+def serve_cli_phase(torch, dev) -> None:
     """``python -m repro_torch.launch.serve`` on the card, as a user runs it:
-    the versioned/TTL command and the 4-tenant command at 1M keys.  Each
-    must exit 0 and print its snapshot match or zero-leak line."""
+    the versioned/TTL command, the 4-tenant command and the reference's four
+    sharded commands, each at ``CLI_KEYS``.  Each must exit 0 and print its
+    tier's report lines; the reshard command's snapshot must restore through
+    ``restore_store`` at 3 shards with the snapshot's pairs as ``items()``."""
     import os
+    import tempfile
+
+    from repro_torch.distributed import snapshot
 
     root = Path(__file__).resolve().parent
     env = dict(os.environ, PYTHONPATH=str(root / "src"))
     n = str(CLI_KEYS)
     runs = []
-    for argv, must in (
-        (["--kv", "--n-keys", n, "--waves", "16", "--wave-size", "8192", "--retain-epochs", "64", "--ttl", "4"],
-         "-> bitwise match"),
-        (["--kv", "--n-keys", n, "--tenants", str(TENANTS), "--tenant-rate", f"0:{int(TENANT_RATE)}",
-          "--tenant-weights", f"0:{TENANT_WEIGHT0}", "--max-delay", str(TENANT_DELAY)],
-         "cross-tenant leaks=0"),
-    ):
+    with tempfile.TemporaryDirectory() as snap_dir:
+        for argv, musts in (
+            (["--kv", "--n-keys", n, "--waves", "16", "--wave-size", "8192", "--retain-epochs", "64", "--ttl", "4"],
+             ["-> bitwise match"]),
+            (["--kv", "--n-keys", n, "--tenants", str(TENANTS), "--tenant-rate", f"0:{int(TENANT_RATE)}",
+              "--tenant-weights", f"0:{TENANT_WEIGHT0}", "--max-delay", str(TENANT_DELAY)],
+             ["cross-tenant leaks=0"]),
+            (["--kv", "--n-keys", n, "--partition", "hash", "--shards", "4"],
+             ["partition=hash shards=4 range fan-out=4.00"]),
+            (["--kv", "--n-keys", n, "--partition", "range", "--shards", "4", "--rebalance", "--rebalance-every", "4"],
+             ["partition=range shards=4", "[serve-kv] rebalance: "]),
+            (["--kv", "--n-keys", n, "--partition", "range", "--shards", "4", "--replication", "2",
+              "--kill-primary-at", "8"],
+             ["killed shard 0 primary", "re-replicated 1 replica(s)", "[serve-kv] replication: R=2", "1 failover(s)"]),
+            (["--kv", "--n-keys", n, "--partition", "range", "--shards", "2", "--reshard-to", "4", "--snapshot-dir",
+              snap_dir],
+             ["-> 4 shards", "[serve-kv] elastic: 1 reshard(s)", "[serve-kv] snapshot: "]),
+        ):
+            t = time.perf_counter()
+            p = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", *argv], cwd=root, env=env,
+                               capture_output=True, text=True, timeout=300)
+            sec = time.perf_counter() - t
+            if p.returncode != 0 or any(m not in p.stdout for m in musts):
+                raise AssertionError(f"serve {' '.join(argv)}: exit {p.returncode}\n{p.stdout[-3000:]}{p.stderr[-3000:]}")
+            lines = [ln for ln in p.stdout.splitlines() if "stats:" not in ln and "stats totals:" not in ln]
+            runs.append({"argv": [a if a != snap_dir else "<tmp>" for a in argv], "exit": p.returncode,
+                         "seconds": sec, "out": lines})
         t = time.perf_counter()
-        p = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", *argv], cwd=root, env=env,
-                           capture_output=True, text=True, timeout=300)
-        sec = time.perf_counter() - t
-        if p.returncode != 0 or must not in p.stdout:
-            raise AssertionError(f"serve {' '.join(argv)}: exit {p.returncode}\n{p.stdout[-3000:]}{p.stderr[-3000:]}")
-        lines = [ln for ln in p.stdout.splitlines() if "stats:" not in ln]
-        runs.append({"argv": argv, "exit": p.returncode, "seconds": sec, "out": lines})
-    emit({"phase": "serve-cli", "runs": runs})
+        snap = snapshot.load_snapshot(snap_dir)
+        st = snapshot.restore_store(snap, n_shards=3, device=dev)
+        assert st.n_shards == 3 and snap.n_shards == 4
+        _same([st.items(), (snap.keys, snap.vals)], "restored snapshot")
+        restore = {"keys": snap.n_keys, "writer_shards": snap.n_shards, "reader_shards": st.n_shards,
+                   "seconds": time.perf_counter() - t}
+        del st
+    emit({"phase": "serve-cli", "runs": runs, "restore": restore})
 
 
 # ----------------------------------------------------------- paged phase
@@ -1635,6 +2110,7 @@ def main() -> int:
     # ---- the versioned phase and the tenant deployment, on the same keys -----
     versioned_phase(torch, dev, keys, vals)
     tenants_phase(torch, dev, keys)
+    sharded_phase(torch, dev, keys, vals, smi)
     del keys, vals
 
     # ---- 4. the card against the CPU ---------------------------------------
@@ -1680,7 +2156,8 @@ def main() -> int:
     del stores, a, b
     versioned_parity(torch, dev)
     frontend_parity(torch, dev)
-    serve_cli_phase()
+    sharded_parity(torch, dev)
+    serve_cli_phase(torch, dev)
 
     paged_phase(torch, dev, kernels)
 

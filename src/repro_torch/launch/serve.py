@@ -18,10 +18,28 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --kv --tenants 4 \\
         --tenant-rate 0:2048 --tenant-weights 0:0.5 --max-delay 4
 
-The store runs on the CUDA card; ``--device cpu`` runs the plain-torch path
-on the CPU.  The sharded, replicated and elastic tiers (``--partition
-hash|range`` and their options) and the LM decode loop (no ``--kv``) are not
-ported yet: their options fail at once, naming the ROADMAP.md item.
+    # sharded: hash tier (RANGE broadcasts) vs range tier (scatter-gather)
+    PYTHONPATH=src python -m repro_torch.launch.serve --kv --partition hash --shards 4
+    PYTHONPATH=src python -m repro_torch.launch.serve --kv --partition range --shards 4
+
+    # online rebalancing: skewed fresh inserts + live boundary refits
+    PYTHONPATH=src python -m repro_torch.launch.serve --kv --partition range \\
+        --shards 4 --rebalance --rebalance-every 4
+
+    # replicated shard groups: R replicas per slice, synchronous write
+    # fan-out, mid-run primary kill + failover + re-replication
+    PYTHONPATH=src python -m repro_torch.launch.serve --kv --partition range \\
+        --shards 4 --replication 2 --kill-primary-at 8
+
+    # elastic scale-out: live reshard 2 -> 4 mid-run, then persist an
+    # epoch-consistent, shard-count-independent snapshot at exit
+    PYTHONPATH=src python -m repro_torch.launch.serve --kv --partition range \\
+        --shards 2 --reshard-to 4 --snapshot-dir /tmp/kv_snap
+
+The store (every shard of a sharded tier) runs on the CUDA card; ``--device
+cpu`` runs the plain-torch path on the CPU.  All shards share the one
+device.  The LM decode loop (no ``--kv``) is not ported yet: it fails at
+once, naming the ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -37,22 +55,11 @@ from ..core import DPAStore, EpochRetiredError, TreeConfig, perfmodel
 from ..core import keys as keymod
 from ..core.datasets import sparse, zipf_indices
 from ..core.scancache import ScanCacheConfig
+from ..distributed.kvshard import ShardedDPAStore
+from ..distributed.snapshot import save_snapshot
 from ..serving.admission import ADMIT_RETRY, AdmissionController, TenantPolicy
 from ..serving.engine import KVWaveDriver
 from ..serving.pipeline import PipelinedStore
-
-#: options of tiers the port does not have yet -> the ROADMAP.md item that
-#: ports them (each defaults to None, so giving one at all is refused)
-_UNPORTED = {
-    "shards": "queue A item 8 (the sharded tiers)",
-    "replication": "queue A item 8 (replicated shard groups)",
-    "kill_primary_at": "queue A item 8 (replica failover)",
-    "rebalance": "queue A item 8 (online rebalancing)",
-    "rebalance_every": "queue A item 8 (online rebalancing)",
-    "reshard_to": "queue A item 8 (elastic resharding)",
-    "snapshot_dir": "queue A item 8 (snapshots)",
-}
-
 
 def device_name(device: torch.device) -> str:
     """The name the throughput lines print for the store's device."""
@@ -112,16 +119,38 @@ def tenant_request(rng, local, tw, wave_size: int, w: int):
     return "range", t, q[:32], None
 
 
+def build_store(args, keys, vals, retain_epochs: int = 0):
+    """The store of the tier ``--partition`` names: one ``DPAStore``, or a
+    ``ShardedDPAStore`` of ``--shards`` (and ``--replication``) on one
+    device."""
+    scan_cfg = ScanCacheConfig() if args.scan_cache else None
+    if args.partition == "single":
+        return DPAStore(
+            keys, vals, TreeConfig(), scan_cache_cfg=scan_cfg, retain_epochs=retain_epochs, device=args.device
+        )
+    return ShardedDPAStore(
+        keys,
+        vals,
+        args.shards,
+        TreeConfig(),
+        partition=args.partition,
+        scan_cache_cfg=scan_cfg,
+        replication=args.replication,
+        retain_epochs=retain_epochs,
+        device=args.device,
+    )
+
+
 def serve_kv_tenants(args):
     """Multi-tenant serving loop: every request rides the deadline wave
     scheduler (:class:`repro_torch.serving.engine.KVWaveDriver`) —
     per-tenant namespaces in one ordered key space, token-bucket
-    admission, weighted wave packing — over one store."""
+    admission, weighted wave packing — over the same single/hash/range
+    tiers as ``serve_kv``."""
     T = args.tenants
     bits = keymod.TENANT_BITS
     local, enc, vals = tenant_slabs(sparse(args.n_keys, seed=1), T, bits)
-    scan_cfg = ScanCacheConfig() if args.scan_cache else None
-    store = DPAStore(enc, vals, TreeConfig(), scan_cache_cfg=scan_cfg, device=args.device)
+    store = build_store(args, enc, vals)
     rates = _parse_tenant_map(args.tenant_rate)
     weights = _parse_tenant_map(args.tenant_weights)
     adm = None
@@ -195,13 +224,11 @@ def serve_kv_tenants(args):
 def serve_kv(args):
     keys = sparse(args.n_keys, seed=1)
     vals = keys ^ np.uint64(0xC0FFEE)
-    scan_cfg = ScanCacheConfig() if args.scan_cache else None
-    store = DPAStore(
-        keys, vals, TreeConfig(), scan_cache_cfg=scan_cfg, retain_epochs=args.retain_epochs, device=args.device
-    )
+    store = build_store(args, keys, vals, retain_epochs=args.retain_epochs)
     # queue_depth > 1: wave N+1 builds and launches while wave N's results
-    # drain; barrier ops (flush, sweep, snapshots) drain the pipeline first.
-    # Every op below goes through ``kv`` so in-flight waves stay consistent.
+    # drain; barrier ops (rebalance, failover, reshard, flush, sweep,
+    # snapshots) drain the pipeline first.  Every op below goes through
+    # ``kv`` so in-flight waves stay consistent.
     pipe = PipelinedStore(store, queue_depth=args.queue_depth) if args.queue_depth > 1 else None
     kv = pipe if pipe is not None else store
     pending = []  # (op kind, ticket) of in-flight waves, submission order
@@ -221,13 +248,17 @@ def serve_kv(args):
     snap = None
     if args.retain_epochs > 0:
         # pin the pre-run state; re-read it through as_of at exit after
-        # the full churn (updates, TTL sweeps)
+        # the full churn (updates, rebalances, reshards, TTL sweeps)
         snap = kv.snapshot_epoch()
         frozen_probe = keys[:: max(len(keys) // 256, 1)][:256]
         frozen_vals = frozen_probe ^ np.uint64(0xC0FFEE)
     idx = zipf_indices(len(keys), args.waves * args.wave_size, alpha=0.99, seed=2)
+    rebalancing = args.rebalance and args.partition == "range"
+    replicated = args.partition == "range" and args.replication > 1
+    fresh_base = keys.max()
     t0 = time.time()
     served = 0
+    recovery_s = None
     tracing = (
         pipe.pipeline.trace(args.profile_dir) if pipe is not None and args.profile_dir else contextlib.nullcontext()
     )
@@ -241,15 +272,24 @@ def serve_kv(args):
                 else:
                     _, found = kv.get(q)
                     assert found.all()
-            elif kind == 2:  # UPDATE
-                upd = q[: args.wave_size // 4]
+            elif kind == 2:
+                if rebalancing:  # sequential fresh-insert storm: the
+                    # adversarial edge workload a load-time boundary fit
+                    # cannot absorb
+                    n_new = args.wave_size // 4
+                    newk = fresh_base + np.uint64(1) + np.arange(n_new, dtype=np.uint64) * np.uint64(3)
+                    fresh_base = newk.max()
+                    upd = newk
+                else:  # UPDATE
+                    upd = q[: args.wave_size // 4]
                 if args.ttl:  # expiring write: deadline bookkeeping rides the serial path
                     kv.put(upd, upd, ttl=args.ttl)
                 elif pipe is not None:
                     pending.append(("put", pipe.submit_put(upd, upd)))
                 else:
                     kv.put(upd, upd)
-            else:  # RANGE (zipf-repeated start keys exercise the anchor cache)
+            else:  # RANGE (scatter-gather on the range tier; broadcast on
+                # hash; zipf-repeated start keys exercise the anchor cache)
                 if pipe is not None:
                     pending.append(("range", pipe.submit_range(q[:64], 10, max_leaves=args.max_leaves)))
                 else:
@@ -257,6 +297,51 @@ def serve_kv(args):
                     range_hits += int(result.counts.sum())
             if pipe is not None:
                 collect()  # deliver all but the in-flight window, in order
+            if replicated and args.kill_primary_at and w + 1 == args.kill_primary_at:
+                promoted = kv.kill_replica(0)  # crash shard 0's primary
+                # (a barrier op: the pipeline drains before the epoch flip)
+                print(
+                    f"[serve-kv] wave {w}: killed shard 0 primary — replica "
+                    f"{promoted} promoted under failover epoch "
+                    f"{store.boundary_epoch}; serving continues"
+                )
+            elif replicated and args.kill_primary_at and w == args.kill_primary_at:
+                # one wave later: the old epoch's in-flight requests have
+                # drained — retire it and re-replicate the dead slot
+                kv.retire_failover()
+                t_rec = time.time()
+                plan = kv.recover_replicas()
+                recovery_s = time.time() - t_rec
+                print(
+                    f"[serve-kv] wave {w}: re-replicated {plan.n_rebuilds} "
+                    f"replica(s) in {recovery_s:.2f}s — group back in sync"
+                )
+            if (
+                args.reshard_to
+                and args.partition == "range"
+                and w + 1 == args.waves // 2
+                and args.reshard_to != kv.n_shards
+            ):
+                # live reshard at the halfway mark (a barrier op: in-flight
+                # waves drain under the epoch they were admitted with)
+                t_rs = time.time()
+                report = kv.reshard(args.reshard_to)
+                print(
+                    f"[serve-kv] wave {w}: resharded "
+                    f"{report['resharded_keys']} keys -> "
+                    f"{report['n_shards']} shards in "
+                    f"{time.time() - t_rs:.2f}s (occupancy spread "
+                    f"{report['ratio']:.2f}); serving continues"
+                )
+            if rebalancing and (w + 1) % args.rebalance_every == 0:
+                report = kv.maybe_rebalance()
+                if report is not None:
+                    print(
+                        f"[serve-kv] wave {w}: rebalanced "
+                        f"{report['migrated_keys']} keys across "
+                        f"{report['moves']} slice moves "
+                        f"(occupancy spread -> {report['ratio']:.2f})"
+                    )
             served += args.wave_size
         if pipe is not None:
             collect(force=True)
@@ -275,17 +360,59 @@ def serve_kv(args):
             + (f" (trace -> {args.profile_dir})" if args.profile_dir else "")
         )
     print(f"[serve-kv] {served} requests in {dt:.2f}s ({served/dt/1e3:.1f} kOPS on {device_name(store.device)})")
-    st = store.stats
-    hit = st.scan_hits / max(st.scan_probes, 1)
-    print(
-        f"[serve-kv] scan-anchor cache: {st.scan_hits}/{st.scan_probes} "
-        f"descents skipped ({100*hit:.0f}% hit), "
-        f"{st.scan_invalidated} anchors invalidated by restitch, "
-        f"{st.range_rounds_in_mesh} continuation rounds in-mesh vs "
-        f"{st.range_reissue_rounds} host re-issue rounds"
-    )
-    print(f"[serve-kv] RANGE returned {range_hits} entries total")
-    print(f"[serve-kv] stats: {st}")
+    if args.partition == "single":
+        st = store.stats
+        hit = st.scan_hits / max(st.scan_probes, 1)
+        print(
+            f"[serve-kv] scan-anchor cache: {st.scan_hits}/{st.scan_probes} "
+            f"descents skipped ({100*hit:.0f}% hit), "
+            f"{st.scan_invalidated} anchors invalidated by restitch, "
+            f"{st.range_rounds_in_mesh} continuation rounds in-mesh vs "
+            f"{st.range_reissue_rounds} host re-issue rounds"
+        )
+        print(f"[serve-kv] RANGE returned {range_hits} entries total")
+        print(f"[serve-kv] stats: {st}")
+    else:
+        fan = store.range_subqueries / max(store.range_requests, 1)
+        tot = store.stats_totals()
+        hit = tot.get("scan_hits", 0) / max(tot.get("scan_probes", 0), 1)
+        print(
+            f"[serve-kv] partition={args.partition} shards={store.n_shards} "
+            f"range fan-out={fan:.2f} sub-queries/request, "
+            f"{store.range_rounds_in_mesh} continuation rounds in-mesh, "
+            f"{store.range_reissues} host re-issues (steady state: 0 — the "
+            f"device loop resumes truncated lanes itself; hash tier "
+            f"broadcasts to all {store.n_shards})"
+        )
+        if store.reshards:
+            print(
+                f"[serve-kv] elastic: {store.reshards} reshard(s), "
+                f"{store.resharded_keys} keys redistributed, now serving "
+                f"{store.n_shards} shards at boundary epoch "
+                f"{store.boundary_epoch}"
+            )
+        if args.partition == "range":
+            spread = store.occupancy_spread(flush=True)
+            print(
+                f"[serve-kv] rebalance: {store.rebalances} cycles "
+                f"({store.rebalances_aborted} aborted), "
+                f"{store.migrated_keys} keys migrated, boundary epoch "
+                f"{store.boundary_epoch}, occupancy spread "
+                f"{spread['ratio']:.2f} (min {spread['min']} / "
+                f"max {spread['max']})"
+            )
+        if replicated:
+            rec = f", recovery {recovery_s:.2f}s" if recovery_s is not None else ""
+            print(
+                f"[serve-kv] replication: R={args.replication}, write "
+                f"amplification {store.write_amplification:.2f}x, "
+                f"{store.acked_writes}/{store.client_writes} writes acked "
+                f"durable group-wide, {store.failovers} failover(s), "
+                f"{store.recoveries} replica(s) rebuilt{rec}"
+            )
+        print(f"[serve-kv] RANGE returned {range_hits} entries total")
+        print(f"[serve-kv] scan-anchor cache: {100*hit:.0f}% descent-skip hit rate across shards")
+        print(f"[serve-kv] shard stats totals: {tot}")
     if args.ttl:
         kv.ttl.tick(args.ttl)  # advance the logical expiry clock past
         # every deadline the loop wrote (reads filter lazily until now)
@@ -313,21 +440,23 @@ def serve_kv(args):
                 f"the {args.retain_epochs}-cycle retention window — raise "
                 f"--retain-epochs to keep longer-lived snapshots readable"
             )
+    if args.snapshot_dir:
+        t_sn = time.time()
+        step = save_snapshot(kv, args.snapshot_dir)
+        print(
+            f"[serve-kv] snapshot: epoch-consistent ordered run saved as "
+            f"step {step} under {args.snapshot_dir} in "
+            f"{time.time() - t_sn:.2f}s — restorable at ANY shard count "
+            f"(repro_torch.distributed.snapshot.restore_store)"
+        )
 
 
 def _refuse_unported(args) -> None:
-    """Fail at once on any option of a tier the port does not have yet."""
+    """Fail at once on a mode the port does not have yet."""
     if not args.kv:
         raise NotImplementedError(
             "the LM decode loop (no --kv) is not ported yet: ROADMAP.md queue A item 11"
         )
-    if args.partition != "single":
-        raise NotImplementedError(
-            f"--partition {args.partition} is not ported yet: ROADMAP.md queue A item 8 (the sharded tiers)"
-        )
-    for name, item in _UNPORTED.items():
-        if getattr(args, name) is not None:
-            raise NotImplementedError(f"--{name.replace('_', '-')} is not ported yet: ROADMAP.md {item}")
 
 
 def main(argv=None):
@@ -343,7 +472,8 @@ def main(argv=None):
         "--partition",
         choices=["single", "hash", "range"],
         default="single",
-        help="KV tier; only 'single' (one store) is ported",
+        help="KV tier: one store, hash-sharded, or range-partitioned "
+        "(quantile boundaries; RANGE scatter-gathers instead of broadcasting)",
     )
 
     def positive_int(v):
@@ -351,6 +481,8 @@ def main(argv=None):
         if iv < 1:
             raise argparse.ArgumentTypeError(f"must be >= 1, got {v}")
         return iv
+
+    ap.add_argument("--shards", type=positive_int, default=4)
 
     ap.add_argument(
         "--scan-cache",
@@ -366,6 +498,52 @@ def main(argv=None):
         default=4,
         help="leaves per RANGE wave; truncated scans resume from their "
         "continuation cursor, so results are exact for any value",
+    )
+    ap.add_argument(
+        "--rebalance",
+        action=argparse.BooleanOptionalAction,
+        default=False,
+        help="range tier only: replace the UPDATE waves with a sequential "
+        "fresh-insert storm and let the planner refit boundaries + migrate "
+        "slices online when the occupancy spread crosses its trigger",
+    )
+    ap.add_argument(
+        "--rebalance-every",
+        type=positive_int,
+        default=4,
+        help="waves between rebalance-planner probes (with --rebalance)",
+    )
+    ap.add_argument(
+        "--replication",
+        type=positive_int,
+        default=1,
+        help="range tier only: replicas per shard group (writes fan out "
+        "synchronously to every in-sync replica; reads round-robin)",
+    )
+    ap.add_argument(
+        "--kill-primary-at",
+        type=int,
+        default=0,
+        help="with --replication > 1: crash shard 0's primary after this "
+        "wave (0 = never) — a follower is promoted via a failover epoch "
+        "and the dead slot is re-replicated one wave later",
+    )
+    ap.add_argument(
+        "--reshard-to",
+        type=int,
+        default=0,
+        help="range tier only: live-reshard the fleet to this shard count "
+        "at the halfway wave (grow or shrink; 0 = never) — old-epoch waves "
+        "drain over the retired generation while fresh requests route over "
+        "the new one, zero acked writes lost",
+    )
+    ap.add_argument(
+        "--snapshot-dir",
+        default="",
+        help="save an epoch-consistent, shard-count-independent snapshot "
+        "of the store here at the end of the run (atomic checkpoint "
+        "layout; restore onto any shard count via "
+        "repro_torch.distributed.snapshot.restore_store)",
     )
     ap.add_argument(
         "--queue-depth",
@@ -433,15 +611,8 @@ def main(argv=None):
     ap.add_argument("--n-keys", type=int, default=100_000)
     ap.add_argument("--waves", type=int, default=16)
     ap.add_argument("--wave-size", type=int, default=1024)
-    # the reference's options of tiers and modes not ported yet: accepted
-    # by the parser so that _refuse_unported can name what ports them
-    ap.add_argument("--shards", type=positive_int, default=None)
-    ap.add_argument("--replication", type=positive_int, default=None)
-    ap.add_argument("--kill-primary-at", type=int, default=None)
-    ap.add_argument("--rebalance", action=argparse.BooleanOptionalAction, default=None)
-    ap.add_argument("--rebalance-every", type=positive_int, default=None)
-    ap.add_argument("--reshard-to", type=int, default=None)
-    ap.add_argument("--snapshot-dir", default=None)
+    # the LM mode's options (not ported yet): accepted by the parser so that
+    # _refuse_unported can name what ports them
     ap.add_argument("--arch", default="glm4-9b")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=2)

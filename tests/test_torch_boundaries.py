@@ -41,7 +41,8 @@ def test_importing_the_port_loads_no_jax():
         "import sys, repro_torch, repro_torch.core, repro_torch.kernels.ops, "
         "repro_torch.core.carry, repro_torch.core.datasets, repro_torch.core.perfmodel, "
         "repro_torch.serving.engine, repro_torch.serving.pipeline, repro_torch.serving.admission, "
-        "repro_torch.launch.serve; "
+        "repro_torch.launch.serve, repro_torch.distributed.kvshard, repro_torch.distributed.rangeshard, "
+        "repro_torch.distributed.snapshot, repro_torch.distributed.elastic, repro_torch.checkpoint.manager; "
         "assert 'jax' not in sys.modules and 'repro' not in sys.modules, sorted(sys.modules)"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -460,3 +461,99 @@ def test_pipelined_equals_serial_on_the_card(cuda_device):
             sa.pop(f), sb.pop(f)
         assert sa == sb, qd
         assert serial.stats.flush_cycles > 0 and pipe.pipeline_summary()["overlap_frac"] > 0
+
+
+def _same_answer(a, b, what):
+    """One call's answers on the card and on the CPU are identical."""
+    if hasattr(a, "counts"):
+        a, b = tuple(a), tuple(b)
+    if isinstance(a, tuple):
+        for x, y in zip(a, b, strict=True):
+            _same_answer(x, y, what)
+    elif isinstance(a, torch.Tensor):
+        assert torch.equal(a.cpu(), b.cpu()), what
+    elif isinstance(a, dict):
+        assert a == b, what
+    else:
+        assert np.array_equal(np.asarray(a), np.asarray(b)), what
+
+
+@pytest.mark.cuda
+def test_sharded_tiers_on_the_card_equal_the_cpu(cuda_device):
+    """The hash tier and the replicated range tier on the card and on the
+    CPU, one seeded stream: GET, PUT, DELETE, RANGE (``k_max``, ``fanout``,
+    one leaf a round), the issue and finalize halves, a primary kill with
+    old-epoch reads, retire and recovery, a reshard 3 -> 4, both device
+    waves over ``stacked()``: every answer, ``items()`` and the counters
+    identical."""
+    from repro_torch.core import TreeConfig, datasets
+    from repro_torch.core.keys import limbs_to_tensor, split_u64
+    from repro_torch.distributed import kvshard, rangeshard
+    from repro_torch.kernels import build
+
+    keys = datasets.sparse(30000, seed=9)
+    vals = keys ^ np.uint64(0x5EED)
+    rng = np.random.default_rng(2)
+    for part, R in (("hash", 1), ("range", 2)):
+        pair = [kvshard.ShardedDPAStore(keys, vals, 3, TreeConfig(growth=16.0), partition=part, replication=R,
+                                        device=d) for d in (cuda_device, "cpu")]
+
+        def both(name, *args, **kw):
+            outs = [getattr(s, name)(*args, **kw) for s in pair]
+            _same_answer(*outs, (part, name))
+            return outs[0]
+
+        before = dict(build.launches)
+        for step in range(4):
+            q = np.concatenate([rng.choice(keys, 3000), rng.integers(0, 2**64 - 1, 500, dtype=np.uint64)])
+            both("get", q)
+            newk = rng.integers(1, 2**63, 800, dtype=np.uint64)
+            both("put", newk, newk ^ np.uint64(step))
+            both("delete", rng.choice(keys, 300))
+            starts = q[:512]
+            both("range", starts, 10)
+            both("range", starts, 40, max_leaves=1, k_max=starts + np.uint64(2**50))
+            if part == "range":
+                both("range", starts, 20, fanout=2)
+            outs = [s.get_finalize(s.get_issue(q[:1000])) for s in pair]
+            _same_answer(*outs, (part, "get halves"))
+            outs = [s.range_finalize(s.range_issue(starts, 10)) for s in pair]
+            _same_answer(*outs, (part, "range halves"))
+            both("flush")
+        if part == "range":
+            both("kill_replica", 0)
+            ep = pair[0].boundary_epoch - 1
+            both("get", q, epoch=ep)
+            both("range", starts, 10, epoch=ep)
+            both("retire_failover")
+            both("recover_replicas")
+            both("reshard", 4)
+            both("get", q)
+            both("range", starts, 10)
+        for k in ("get", "cache_probe_p1", "range_walk"):
+            assert build.launches[k] > before[k], f"{part}: kernel {k} did not run on the card"
+        _same_answer(*[s.items() for s in pair], (part, "items"))
+        for c in ("range_requests", "range_subqueries", "client_writes", "replica_writes", "acked_writes",
+                  "failovers", "recoveries", "reshards", "n_shards"):
+            assert getattr(pair[0], c) == getattr(pair[1], c), (part, c)
+        assert pair[0].stats_totals() == pair[1].stats_totals()
+        stacks = [s.stacked() for s in pair]
+        n_s = pair[0].n_shards
+        qs = np.concatenate([rng.choice(keys, n_s * 200), rng.integers(0, 2**64 - 1, n_s * 56, dtype=np.uint64)])
+        qs = qs.reshape(n_s, 256)
+        route = rangeshard.make_route_fn(pair[0].boundaries) if part == "range" else None
+        for cap in (256, 40):
+            outs = []
+            for (tree, ib, depth), s in zip(stacks, pair):
+                l = limbs_to_tensor(split_u64(qs), s.device)
+                outs.append(kvshard.serve_wave_emulated(tree, ib, l[..., 0].contiguous(), l[..., 1].contiguous(),
+                                                        cap=cap, depth=depth, eps_inner=4, eps_leaf=8, route_fn=route))
+            _same_answer(*outs, (part, "serve wave", cap))
+            if part == "range":
+                outs = []
+                for (tree, ib, depth), s in zip(stacks, pair):
+                    l = limbs_to_tensor(split_u64(qs[:, :16]), s.device)
+                    outs.append(rangeshard.range_wave_emulated(
+                        tree, ib, l[..., 0].contiguous(), l[..., 1].contiguous(), s.boundaries,
+                        cap=cap // 8, depth=depth, eps_inner=4, limit=10, fanout=2))
+                _same_answer(*outs, (part, "range wave", cap))

@@ -10,8 +10,11 @@ launcher of the port against the JAX package.
   tenant, op, status, result), with the same ``scheduler_summary()`` and
   the same waves in its pipeline's ledger, on the single-store cases of
   ``tests/test_tenants.py`` with their own oracles.
-* ``repro_torch.launch.serve.main`` runs its KV loops with ``--device cpu``
-  and refuses every option of a tier that is not ported."""
+* The same holds for the driver over the range, replicated range and
+  resharded tiers (``tests/test_tenants.py``'s sharded cases).
+* ``repro_torch.launch.serve.main`` runs its KV loops with ``--device cpu``,
+  the sharded tiers' options included, and refuses the LM mode, which is
+  not ported."""
 
 import re
 
@@ -25,9 +28,12 @@ from repro.core import DPAStore as JaxStore
 from repro.core import TreeConfig as JaxTreeConfig
 from repro.core import keys as jkeys
 from repro.serving import admission as jadmission
+from repro.distributed import kvshard as jkvshard
 from repro.serving.engine import KVWaveDriver as JaxDriver
 from repro_torch.core import DPAStore, TreeConfig
 from repro_torch.core import keys as keymod
+from repro_torch.distributed.kvshard import ShardedDPAStore
+from repro_torch.distributed.snapshot import restore_store
 from repro_torch.launch import serve
 from repro_torch.serving import admission
 from repro_torch.serving.admission import ADMIT_OK, ADMIT_RETRY, AdmissionController, TenantPolicy
@@ -161,20 +167,33 @@ def _same_reply(a, b):
         np.testing.assert_array_equal(ra, rb)
 
 
+def _build(tier, keys, vals, jax=False):
+    """The store of a tier (``tests/test_tenants.py``'s ``_build``), the
+    port's on the CPU or the reference's."""
+    if tier == "single":
+        if jax:
+            return JaxStore(keys, vals, JaxTreeConfig(growth=16.0), cache_cfg=None)
+        return DPAStore(keys, vals, TreeConfig(growth=16.0), cache_cfg=None, device="cpu")
+    kw = dict(partition="hash" if tier == "hash" else "range", replication=2 if tier == "replicated" else 1)
+    if jax:
+        return jkvshard.ShardedDPAStore(keys, vals, 3, JaxTreeConfig(growth=16.0), **kw)
+    return ShardedDPAStore(keys, vals, 3, TreeConfig(growth=16.0), device="cpu", **kw)
+
+
 class Twin:
     """The port's ``KVWaveDriver`` over the port's store and the reference's over a
     JAX store, fed the same calls; every return value and refusal must be
     the same.  ``drv`` is the port's driver."""
 
-    def __init__(self, keys, vals, admission_policies=None, **kw):
+    def __init__(self, keys, vals, admission_policies=None, tier="single", **kw):
         pol = admission_policies
         self.drv = KVWaveDriver(
-            DPAStore(keys, vals, TreeConfig(growth=16.0), cache_cfg=None, device="cpu"),
+            _build(tier, keys, vals),
             admission=None if pol is None else AdmissionController({t: TenantPolicy(**p) for t, p in pol.items()}),
             **kw,
         )
         self.ref = JaxDriver(
-            JaxStore(keys, vals, JaxTreeConfig(growth=16.0), cache_cfg=None),
+            _build(tier, keys, vals, jax=True),
             admission=None if pol is None else jadmission.AdmissionController(
                 {t: jadmission.TenantPolicy(**p) for t, p in pol.items()}),
             **kw,
@@ -271,6 +290,36 @@ def test_cross_tenant_range_isolation_vs_oracle():
             oracle[t].pop(k, None)
     assert all(r.status == ADMIT_OK for r in tw.drain())
     _check_ranges(tw, oracle, locals_, seed=29)
+
+
+@pytest.mark.parametrize("tier", ["range", "replicated"])
+def test_cross_tenant_range_isolation_on_the_sharded_tiers(tier):
+    """The range and replicated range tiers (3 shard groups) through the
+    driver: every reply and the scheduler summary equal the reference's, and
+    RANGE rows stay inside each tenant's slab."""
+    oracle, locals_, ek, ev = _tenant_world()
+    tw = Twin(ek, ev, tier=tier, wave_size=64, tenant_bits=keymod.TENANT_BITS)
+    _check_ranges(tw, oracle, locals_)
+    rng = np.random.default_rng(23)
+    for t, lk in locals_.items():
+        upd = lk[rng.integers(0, len(lk), 16)]
+        tw.request("put", upd, upd ^ np.uint64(0xBEEF), tenant=t)
+        for k in upd.tolist():
+            oracle[t][k] = k ^ 0xBEEF
+    assert all(r.status == ADMIT_OK for r in tw.drain())
+    _check_ranges(tw, oracle, locals_, seed=29)
+
+
+def test_tenant_isolation_through_reshard():
+    """A live reshard (3 -> 2 shards) under the driver keeps per-tenant
+    RANGE isolation, with the same replies as the reference."""
+    oracle, locals_, ek, ev = _tenant_world()
+    tw = Twin(ek, ev, tier="range", wave_size=64, tenant_bits=keymod.TENANT_BITS)
+    _check_ranges(tw, oracle, locals_)
+    mine, theirs = tw.drv.store.reshard(2), tw.ref.store.reshard(2)  # barriers: each pipeline drains first
+    assert mine["resharded_keys"] == theirs["resharded_keys"] > 0
+    assert tw.drv.store.n_shards == 2
+    _check_ranges(tw, oracle, locals_, seed=31)
 
 
 def _single_world(n=512, seed=0):
@@ -473,15 +522,6 @@ def test_serve_kv_four_tenants_leaks_nothing(capsys):
 @pytest.mark.parametrize(
     "argv, item",
     [
-        (["--kv", "--partition", "hash"], "item 8"),
-        (["--kv", "--partition", "range"], "item 8"),
-        (["--kv", "--shards", "4"], "item 8"),
-        (["--kv", "--replication", "2"], "item 8"),
-        (["--kv", "--kill-primary-at", "8"], "item 8"),
-        (["--kv", "--rebalance"], "item 8"),
-        (["--kv", "--rebalance-every", "4"], "item 8"),
-        (["--kv", "--reshard-to", "4"], "item 8"),
-        (["--kv", "--snapshot-dir", "snap"], "item 8"),
         (["--arch", "glm4-9b", "--reduced", "--steps", "16"], "item 11"),
         ([], "item 11"),
     ],
@@ -489,6 +529,61 @@ def test_serve_kv_four_tenants_leaks_nothing(capsys):
 def test_serve_refuses_unported_options(argv, item):
     with pytest.raises(NotImplementedError, match=item):
         serve.main([*argv, "--device", "cpu"])
+
+
+@pytest.mark.parametrize(
+    "argv",
+    [
+        ["--partition", "hash", "--shards", "2"],
+        ["--partition", "range", "--shards", "3", "--rebalance", "--rebalance-every", "2"],
+        ["--partition", "range", "--replication", "2", "--kill-primary-at", "2"],
+        ["--partition", "range", "--shards", "2", "--reshard-to", "3"],
+        ["--partition", "range", "--tenants", "2"],
+    ],
+)
+def test_serve_accepts_the_sharded_options(capsys, argv):
+    """Every option of the sharded tiers runs (tiny stores, 4 waves)."""
+    out = _serve(capsys, "--kv", "--n-keys", "3000", "--waves", "4", "--wave-size", "256", *argv)
+    assert ("range fan-out=" in out) or ("cross-tenant leaks=0" in out)
+
+
+def test_serve_range_tier_with_failover_reports():
+    """``python -m repro_torch.launch.serve --kv --device cpu --partition
+    range --shards 4 --replication 2 --kill-primary-at 8`` at a few thousand
+    keys exits 0 with the failover, recovery, rebalance, replication and
+    fan-out lines."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    src = Path(__file__).resolve().parents[1] / "src"
+    p = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--kv", "--device", "cpu", "--n-keys", "4000",
+         "--partition", "range", "--shards", "4", "--replication", "2", "--kill-primary-at", "8"],
+        env=dict(os.environ, PYTHONPATH=str(src)), capture_output=True, text=True, timeout=240,
+    )
+    assert p.returncode == 0, p.stderr[-2000:]
+    out = p.stdout
+    assert "killed shard 0 primary — replica 1 promoted" in out
+    assert "re-replicated 1 replica(s)" in out
+    assert "[serve-kv] rebalance: 0 cycles (0 aborted)" in out
+    assert "[serve-kv] replication: R=2, write amplification 2.00x" in out and "1 failover(s)" in out
+    assert "range fan-out=" in out
+
+
+def test_serve_reshard_leaves_a_snapshot_restore_store_reads(capsys, tmp_path):
+    out = _serve(capsys, "--kv", "--n-keys", "4000", "--partition", "range", "--shards", "2", "--reshard-to", "4",
+                 "--snapshot-dir", str(tmp_path / "snap"))
+    assert "resharded 4000 keys -> 4 shards" in out and "[serve-kv] elastic: 1 reshard(s)" in out
+    assert "saved as step 0" in out
+    st = restore_store(tmp_path / "snap", n_shards=3, device="cpu")
+    assert st.n_shards == 3 and st.partition == "range"
+    keys, vals = st.items()
+    base = serve.sparse(4000, seed=1)
+    np.testing.assert_array_equal(keys, base)  # the UPDATE waves write existing keys
+    updated = vals != (base ^ np.uint64(0xC0FFEE))
+    assert updated.any() and (vals[updated] == keys[updated]).all()  # serve_kv writes value = key
 
 
 def test_serve_defaults_to_the_card():
