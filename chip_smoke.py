@@ -74,6 +74,13 @@ Phases, one JSON line each (any mismatch raises and exits non-zero):
                ample cap and at one it overflows (RETRY rows, every other row
                equal to the oracle) and ``range_wave_emulated`` on (4, 16)
                starts (limit 10, fan-out 2), timed.
+   dist     — right after ``sharded``, on its stack: 4 spawned ``gloo``
+               ranks on the card (the pools as CUDA IPC handles, one shard
+               each) run ``serve_wave_sharded`` and ``range_wave_sharded``
+               on the same requests and caps, 3 times each; the gathered
+               rows equal the emulated waves' bitwise, B1 and B3 launch in
+               every rank; per wave each rank's host ms, exchange ms and
+               bytes.
 4. parity   — the same seeded op stream on a 200k-key store on the card and
                on the CPU: responses and final state tensors identical; then
                a second pair with a retention window (TTL puts, ticks, two
@@ -92,6 +99,17 @@ Phases, one JSON line each (any mismatch raises and exits non-zero):
                epochs, reshards 2 -> 4 -> 3, TTL puts and the sweep, chain
                compaction, ``as_of``, both emulated waves, a snapshot
                restored at another shard count): everything identical.
+               ``dist-parity``: the range tier at 600k keys (4 shards)
+               before and during a live rebalance, 4 ``gloo`` ranks on the
+               card against the port's emulated waves on the CPU (hash and
+               range routing, both epochs, mixed-epoch tags, RETRY caps,
+               the looped RANGE); then an NCCL group of world size 1 on a
+               1-shard hash tier, equal to the emulated wave and the GET.
+               ``kv-dryrun``: ``python -m repro_torch.launch.kv_dryrun
+               --mesh both``: one rank of the production 16-way ``data``
+               axis (3,125,000 keys, 4096 requests, cap 4096) per mesh,
+               answers against the shard's keys, bytes per device = 5
+               exchanges of a (16, 4096) int32 tensor.
                ``serve-cli``: ``python -m repro_torch.launch.serve`` run as
                a user runs it, at 1M keys: ``--retain-epochs 64 --ttl 4``,
                the 4-tenant command and the four sharded commands (hash;
@@ -201,6 +219,13 @@ SHARDED_PARITY_GROWTH, SHARDED_PARITY_RETAIN = 16.0, 8  # headroom for retention
 # (896 leaves), the storm's splits would deepen one of them, and stacked()
 # refuses mixed depths, as the reference's does
 SHARDED_PARITY_KEYS = 600_000
+# the multi-rank waves: one gloo rank per shard, all on the one card (NCCL
+# puts one rank on a card); each wave is timed DIST_REPS times in every rank
+DIST_REPS = 3
+DIST_PARITY_W = 256  # requests per rank in dist-parity's waves
+DIST_PARITY_STORM = 3000  # sequential fresh keys past the last shard before its rebalance (as sharded-parity)
+# kv-dryrun: 5 exchanges of a (16, 4096) int32 tensor per device and wave
+KV_DRYRUN_BYTES = 5 * 16 * (65536 // 16) * 4
 
 
 def emit(obj) -> None:
@@ -1257,7 +1282,7 @@ def _timed_wave(torch, fn, reps: int = 3):
     return out, float(np.median(times))
 
 
-def sharded_phase(torch, dev, keys, vals, smi: str) -> None:
+def sharded_phase(torch, dev, keys, vals, smi: str) -> dict:
     """The replicated range tier on phase 3's 50M keys: ``launch/serve.py
     --partition range --shards 4 --replication 2 --kill-primary-at 8`` with
     ``--rebalance --rebalance-every 4`` at 65536-request waves through
@@ -1387,7 +1412,7 @@ def sharded_phase(torch, dev, keys, vals, smi: str) -> None:
     p = np.minimum(np.searchsorted(allk, qs), allk.size - 1)
     exp_f = allk[p] == qs
     exp_v = np.where(exp_f, allv[p], 0)
-    emu = {}
+    emu, waves = {}, []
     for name, cap in (("ample", SHARDED_EMU_W), ("overflow", SHARDED_EMU_CAP_SMALL)):
         build.reset_launches()
         out, ms = _timed_wave(torch, lambda: serve_wave_emulated(
@@ -1399,6 +1424,7 @@ def sharded_phase(torch, dev, keys, vals, smi: str) -> None:
         assert okm.all() == (name == "ample"), f"serve wave {name}: ok"
         assert (fd[okm] == exp_f[okm]).all() and (v[okm] == exp_v[okm]).all(), f"serve wave {name}"
         assert not fd[~okm].any(), f"serve wave {name}: a RETRY row carries an answer"
+        waves.append((f"serve_{name}", "serve", {"cap": cap, "eps_leaf": store.cfg.eps_leaf}, khi, klo, out))
         emu[f"serve_{name}"] = {"cap": cap, "ms": ms, "retry_rows": int((~okm).sum()),
                                 "requests": int(qs.size), "found": int(fd.sum())}
     starts = qs[:, :16]
@@ -1416,7 +1442,8 @@ def sharded_phase(torch, dev, keys, vals, smi: str) -> None:
     assert (np.where(valid, j64(kh, kl), 0).reshape(-1, 10) == ek).all(), "range wave keys"
     assert (np.where(valid, j64(vh, vl), 0).reshape(-1, 10) == ev).all(), "range wave vals"
     emu["range"] = {"starts": int(starts.size), "limit": 10, "fanout": 2, "ms": ms, "rounds": rounds.tolist()}
-    del tree, ib
+    waves.append(("range", "range", {"cap": 32, "limit": 10, "fanout": 2}, ls[..., 0].contiguous(),
+                  ls[..., 1].contiguous(), out))
     spread = store.occupancy_spread(flush=True)
     by_kind = {}
     for r in pipe.ledger.records:  # host seconds of issue + drain, per wave kind
@@ -1444,8 +1471,12 @@ def sharded_phase(torch, dev, keys, vals, smi: str) -> None:
         "oracle": "every answer, every acked write on every in-sync replica, replicas equal, content equal",
         "seconds": time.perf_counter() - t_phase,
     })
+    boundaries, eps_inner = store.boundaries, store.cfg.eps_inner
     del pipe, store, oracle, draws
     torch.cuda.empty_cache()
+    # the dist step's inputs: the stack, and the emulated waves' requests, caps and outputs
+    return {"tree": tree, "ib": ib, "depth": depth, "eps_inner": eps_inner, "boundaries": boundaries,
+            "waves": waves}
 
 
 def _sharded_stream(torch, pair, part, pkeys, prng, snap_dir):
@@ -1595,6 +1626,204 @@ def sharded_parity(torch, dev) -> None:
     emit({"phase": "sharded-parity", "keys": SHARDED_PARITY_KEYS, "tiers": {"range": "2 shards x R=2, resharded 2->4->3",
           "hash": "4 shards"}, "compared_calls": calls, "identical": True, "launches": launches,
           "seconds": time.perf_counter() - t_phase})
+
+
+def _rank_summary(reports, n_waves):
+    """Per wave, each rank's median host ms, its exchange ms and bytes."""
+    return [{"host_ms": [float(np.median(r["waves"][i]["host_ms"])) for r in reports],
+             "exchange_ms": [r["waves"][i]["exchange_ms"] for r in reports],
+             "exchanges": reports[0]["waves"][i]["exchanges"],
+             "bytes_per_rank": [r["waves"][i]["bytes"] for r in reports]} for i in range(n_waves)]
+
+
+def _assert_rank_launches(reports, what, kernels=("get", "range_walk")):
+    for r, rep in enumerate(reports):
+        for k in kernels:
+            assert rep["launches"][k] > 0, f"{what}: kernel {k} did not run in rank {r}"
+
+
+def dist_phase(torch, dev, ctx: dict, smi: str) -> None:
+    """The sharded phase's stacked 50M-key range tier on one gloo rank per
+    shard, all on the card (the pools reach the ranks as CUDA IPC handles):
+    ``serve_wave_sharded`` and ``range_wave_sharded`` on the exact requests
+    and caps of the phase's emulated waves, each rank's rows gathered and
+    held bitwise against the emulated outputs (which the phase held against
+    the oracle); B1 and B3 must run in every rank."""
+    from repro_torch.distributed.kvshard import stacked_bytes
+    from repro_torch.launch.local_ranks import WaveCase, spawn_waves
+
+    t_phase = time.perf_counter()
+    depth, eps_inner = ctx["depth"], ctx["eps_inner"]
+    cases, names = [], []
+    for name, kind, params, khi, klo, _ in ctx["waves"]:
+        kw = dict(params, depth=depth, eps_inner=eps_inner)
+        cases.append(WaveCase(kind, khi.cpu(), klo.cpu(), kw, boundaries=ctx["boundaries"]))
+        names.append(name)
+    outs, reports = spawn_waves([(ctx["tree"], ctx["ib"])], cases, device=dev, backend="gloo", reps=DIST_REPS)
+    for name, got, (*_, want) in zip(names, outs, ctx["waves"]):
+        for i, (a, b) in enumerate(zip(got, want, strict=True)):
+            assert a.shape == b.shape and torch.equal(a, b.cpu()), f"dist {name}: output {i}"
+    _assert_rank_launches(reports, "dist")
+    ok = outs[names.index("serve_overflow")][3]
+    emit({"phase": "dist", "nvidia_smi": smi, "ranks": len(reports), "backend": reports[0]["backend"],
+          "device": reports[0]["device"], "stacked_bytes": stacked_bytes(ctx["tree"], ctx["ib"]),
+          "waves": dict(zip(names, _rank_summary(reports, len(cases)))), "reps": DIST_REPS,
+          "requests": {n: list(c.khi.shape) for n, c in zip(names, cases)},
+          "retry_rows_overflow": int((~ok).sum()), "rounds": outs[names.index("range")][7].tolist(),
+          "launches": [r["launches"] for r in reports], "identical": True,
+          "seconds": time.perf_counter() - t_phase})
+
+
+def _to_dev(state, dev):
+    return type(state)(*(t.to(dev) for t in state))
+
+
+def dist_parity(torch, dev) -> None:
+    """At ``sharded_parity``'s 600k keys: the range tier (4 shards) before
+    and during a live rebalance, 4 gloo ranks on the card against the port's
+    emulated waves on the CPU, bitwise — hash and range routing, both
+    epochs, a mixed-epoch tagged GET and RANGE wave, RANGE at ``limit=5,
+    max_leaves=8``, the looped ``limit=40, max_leaves=1`` (per-shard rounds
+    equal, some > 1) and a small cap with RETRY rows.  Then one NCCL
+    process group of world size 1 on the hash tier: ``serve_wave_sharded``
+    equal to the emulated wave at ``n_shards=1`` and to the store's GET."""
+    import tempfile
+
+    import torch.distributed as tdist
+
+    from repro_torch.core import TreeConfig, datasets
+    from repro_torch.core.keys import limbs_to_tensor, split_u64
+    from repro_torch.distributed.kvshard import ShardedDPAStore, serve_wave_emulated, serve_wave_sharded, shard_state
+    from repro_torch.kernels import build
+    from repro_torch.launch import mesh as meshes
+    from repro_torch.launch.local_ranks import WaveCase, spawn_waves
+
+    t_phase = time.perf_counter()
+    pkeys = datasets.sparse(SHARDED_PARITY_KEYS, seed=SEED + 16)
+    pvals = pkeys ^ np.uint64(0xD157)
+    st = ShardedDPAStore(pkeys, pvals, SHARDS, TreeConfig(growth=SHARDED_PARITY_GROWTH), partition="range",
+                         cache_cfg=None, device="cpu")
+    old = st.stacked()
+    b_old = st.boundaries.copy()
+    storm = pkeys.max() + np.uint64(1) + np.arange(DIST_PARITY_STORM, dtype=np.uint64) * np.uint64(3)
+    st.put(storm, storm ^ np.uint64(0xD157))
+    st.flush()
+    assert st.begin_rebalance(st.planner.propose(st.boundaries)), "the storm must open a rebalance"
+    new = st.stacked()
+    b_new = st.boundaries.copy()
+    assert old[2] == new[2], "one tree depth across both stacks"
+    depth = new[2]
+    rng = np.random.default_rng(SEED + 17)
+    W = DIST_PARITY_W
+    allk = np.concatenate([pkeys, storm])
+    qs = np.concatenate([rng.choice(allk, SHARDS * W * 3 // 4),
+                         rng.integers(0, 2**64 - 1, SHARDS * W // 4, dtype=np.uint64)])
+    rng.shuffle(qs)
+    lq = limbs_to_tensor(split_u64(qs.reshape(SHARDS, W)), "cpu")
+    kh, kl = lq[..., 0].contiguous(), lq[..., 1].contiguous()
+    tag = torch.from_numpy(rng.integers(0, 2, (SHARDS, W)).astype(np.int32))
+    g = dict(depth=depth, eps_inner=4, eps_leaf=8)
+    r = dict(depth=depth, eps_inner=4)
+    ample = SHARDS * W
+    cases = {
+        "get hash": WaveCase("serve", kh, kl, dict(cap=ample, **g), state=1),
+        "get old epoch": WaveCase("serve", kh, kl, dict(cap=ample, **g), boundaries=b_old),
+        "get new epoch": WaveCase("serve", kh, kl, dict(cap=ample, **g), boundaries=b_new, state=1),
+        "get mixed epoch": WaveCase("serve", kh, kl, dict(cap=ample, **g), boundaries=b_new, boundaries_prev=b_old,
+                                    epoch_tag=tag, state=1),
+        "get retry": WaveCase("serve", kh, kl, dict(cap=W // 8, **g), boundaries=b_new, state=1),
+        "range old epoch": WaveCase("range", kh, kl, dict(cap=ample, limit=5, max_leaves=8, **r), boundaries=b_old),
+        "range new epoch": WaveCase("range", kh, kl, dict(cap=ample, limit=5, max_leaves=8, **r), boundaries=b_new,
+                                    state=1),
+        "range mixed epoch": WaveCase("range", kh, kl, dict(cap=ample, limit=5, max_leaves=8, **r), boundaries=b_new,
+                                      boundaries_prev=b_old, epoch_tag=tag, state=1),
+        "range looped": WaveCase("range", kh, kl, dict(cap=ample, limit=40, max_leaves=1, **r), boundaries=b_new,
+                                 state=1),
+        "range retry": WaveCase("range", kh, kl, dict(cap=W // 8, limit=5, max_leaves=8, fanout=2, **r),
+                                boundaries=b_new, state=1),
+    }
+    states = [old[:2], new[:2]]
+    want = {n: c.emulated(*states[c.state]) for n, c in cases.items()}
+    outs, reports = spawn_waves([(_to_dev(t, dev), _to_dev(i, dev)) for t, i in states], list(cases.values()),
+                                device=dev, backend="gloo")
+    for (n, c), got in zip(cases.items(), outs):
+        for i, (a, b) in enumerate(zip(got, want[n], strict=True)):
+            assert a.shape == b.shape and torch.equal(a, b), f"dist-parity {n}: output {i}"
+    _assert_rank_launches(reports, "dist-parity")
+    got = dict(zip(cases, outs))
+    assert not got["get retry"][3].all() and got["get retry"][3].any(), "RETRY rows at the small cap"
+    assert not got["range retry"][5].all(), "RETRY rows in the small-cap RANGE wave"
+    assert int(got["range looped"][7].max()) > 1 and not got["range looped"][6].any(), "the looped RANGE"
+    del st, old, new, states
+
+    # NCCL, world size 1, on the hash tier
+    build.reset_launches()
+    hs = ShardedDPAStore(pkeys, pvals, 1, TreeConfig(), partition="hash", cache_cfg=None, device=dev)
+    tree, ib, hdepth = hs.stacked()
+    q1 = np.concatenate([rng.choice(pkeys, 6000), rng.integers(0, 2**64 - 1, 2192, dtype=np.uint64)])
+    l1 = limbs_to_tensor(split_u64(q1[None]), dev)
+    k1h, k1l = l1[..., 0].contiguous(), l1[..., 1].contiguous()
+    kw = dict(cap=q1.size, depth=hdepth, eps_inner=4, eps_leaf=8)
+    with tempfile.TemporaryDirectory() as d:
+        backend = meshes.init_process_group(0, 1, f"file://{d}/rendezvous", device=dev)
+        try:
+            m = meshes.make_debug_mesh(1, 1, device=dev)
+            fn = serve_wave_sharded(m, tree, ib, **kw)
+            nccl = fn(*shard_state(tree, ib, 0), k1h, k1l)
+            torch.cuda.synchronize()
+            x = fn.exchange
+            nccl_x = {"exchanges": x.calls, "bytes": x.bytes, "exchange_ms": x.seconds * 1e3}
+        finally:
+            tdist.destroy_process_group()
+    assert build.launches["get"] == 1, "serve_wave_sharded: one B1 launch at world size 1"
+    emu = serve_wave_emulated(tree, ib, k1h, k1l, **kw)
+    for i, (a, b) in enumerate(zip(nccl, emu, strict=True)):
+        assert torch.equal(a, b), f"NCCL world size 1: output {i}"
+    v, f = hs.get(q1)
+    vh, vl, fd, okm = (t[0].cpu().numpy() for t in nccl)
+    assert okm.all() and np.array_equal(fd, f), "NCCL world size 1: found against the store's GET"
+    v1 = (vh.view(np.uint32).astype(np.uint64) << np.uint64(32)) | vl.view(np.uint32)
+    assert np.array_equal(v1[fd], v[f]), "NCCL world size 1: values against the store's GET"
+    emit({"phase": "dist-parity", "keys": SHARDED_PARITY_KEYS, "storm": DIST_PARITY_STORM, "shards": SHARDS,
+          "ranks": len(reports), "backend": reports[0]["backend"], "requests_per_rank": W,
+          "compared": list(cases), "identical": True,
+          "retry_rows": {n: int((~got[n][3 if n.startswith("get") else 5]).sum()) for n in ("get retry", "range retry")},
+          "looped_rounds": got["range looped"][7].tolist(), "mixed_tags": [int((tag == 0).sum()), int((tag == 1).sum())],
+          "waves": dict(zip(cases, _rank_summary(reports, len(cases)))),
+          "launches": [rk["launches"] for rk in reports],
+          "nccl": {"backend": backend, "world_size": 1, "requests": int(q1.size), "found": int(fd.sum()), **nccl_x},
+          "seconds": time.perf_counter() - t_phase})
+    del hs, tree, ib
+    torch.cuda.empty_cache()
+
+
+def kv_dryrun_phase(torch, dev) -> None:
+    """``python -m repro_torch.launch.kv_dryrun --mesh both`` on the card, as
+    a user runs it: both records written, one rank's wave at the production
+    per-shard size (3,125,000 keys, 4096 requests, cap 4096) checked against
+    its keys, and the bytes per device and wave equal to 5 exchanges of a
+    ``(16, 4096)`` int32 tensor."""
+    import os
+    import tempfile
+
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        p = subprocess.run([sys.executable, "-m", "repro_torch.launch.kv_dryrun", "--mesh", "both", "--out", d],
+                           cwd=root, env=env, capture_output=True, text=True, timeout=300)
+        if p.returncode != 0:
+            raise AssertionError(f"kv_dryrun: exit {p.returncode}\n{p.stdout[-3000:]}{p.stderr[-3000:]}")
+        recs = [json.loads((Path(d) / f"dpastore-service__wave__{m}.json").read_text())
+                for m in ("pod16x16", "pod2x16x16")]
+    for rec in recs:
+        assert rec["status"] == "ok" and rec["device"] == torch.cuda.get_device_name(0), rec["mesh"]
+        assert rec["collective_bytes_per_device"] == KV_DRYRUN_BYTES, rec["collective_bytes_per_device"]
+        assert rec["n_shards"] == 16 and rec["keys_per_shard"] == 3_125_000 and rec["cap"] == 4096
+        assert rec["launches"]["get"] > 0, "kv_dryrun: B1 did not run"
+        emit({"phase": "kv-dryrun", **rec})
+    emit({"phase": "kv-dryrun-cli", "exit": p.returncode, "out": p.stdout.splitlines(),
+          "seconds": time.perf_counter() - t})
 
 
 def serve_cli_phase(torch, dev) -> None:
@@ -2110,8 +2339,11 @@ def main() -> int:
     # ---- the versioned phase and the tenant deployment, on the same keys -----
     versioned_phase(torch, dev, keys, vals)
     tenants_phase(torch, dev, keys)
-    sharded_phase(torch, dev, keys, vals, smi)
+    dist_ctx = sharded_phase(torch, dev, keys, vals, smi)
     del keys, vals
+    dist_phase(torch, dev, dist_ctx, smi)
+    del dist_ctx
+    torch.cuda.empty_cache()
 
     # ---- 4. the card against the CPU ---------------------------------------
     pkeys = datasets.sparse(PARITY_KEYS, seed=SEED + 1)
@@ -2157,6 +2389,8 @@ def main() -> int:
     versioned_parity(torch, dev)
     frontend_parity(torch, dev)
     sharded_parity(torch, dev)
+    dist_parity(torch, dev)
+    kv_dryrun_phase(torch, dev)
     serve_cli_phase(torch, dev)
 
     paged_phase(torch, dev, kernels)

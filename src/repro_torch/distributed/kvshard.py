@@ -31,18 +31,24 @@ reads round-robin over the in-sync set, and killing the primary promotes a
 follower through the same two-epoch ownership flip the rebalance handoff
 uses — see ``ShardedDPAStore.kill_replica`` / ``recover_replicas``.
 
-Everything here runs on one device.  :class:`ShardedDPAStore` is host
-orchestration over per-shard ``DPAStore`` s (every sub-store on the
-facade's ``device``: the card unless the caller passes ``device="cpu"``),
-so each shard's GET and RANGE sub-waves run on kernels B1-B3 through the
-store.  ``serve_wave_emulated`` is the device wave over ``stacked()``: the
+Everything but ``serve_wave_sharded`` runs on one device.
+:class:`ShardedDPAStore` is host orchestration over per-shard
+``DPAStore`` s (every sub-store on the facade's ``device``: the card unless
+the caller passes ``device="cpu"``), so each shard's GET and RANGE
+sub-waves run on kernels B1-B3 through the store.  ``serve_wave_emulated`` is the device wave over ``stacked()``: the
 reference ``vmap`` s it over the shard dim; here it is a loop over shards
 whose exchange is a transpose of the ``(src, dest, cap)`` bucket tensor,
 and each destination shard serves its requests with kernel B1
 (``kernels.ops.get``) on its slice of the stacked pools.  Not-found rows
 carry 0 (B1's contract; the reference's plain ``get_batch`` leaves the
-probed slot there).  The multi-device exchanges (``serve_wave_sharded``)
-are not part of this module yet.
+probed slot there).
+
+``serve_wave_sharded`` is the same wave over ranks: each rank of a mesh's
+``data`` axis (``launch.mesh``) holds one shard's pools and its own
+request rows, runs ``make_serve_wave``'s body once (B1 once per rank a
+wave), and the exchange is ``torch.distributed.all_to_all_single`` over the
+axis's process group (:class:`MeshExchange`).  On one card the ranks share
+it over ``gloo``; ``launch.local_ranks`` spawns them.
 
 JAX drops scatter writes at out-of-range indices (``mode="drop"``); torch
 raises on the CPU and is undefined on CUDA.  Every such scatter here writes
@@ -59,6 +65,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core import api, lookup, pla
 from ..core.api import RangeResult
@@ -70,6 +77,7 @@ from ..core.store import STATUS_OK, DPAStore, resolve_device
 from ..core.tree import DeviceTree, TreeConfig
 from ..core.ttl import TTLTracker
 from ..kernels import ops
+from ..launch.mesh import data_axis
 from .elastic import plan_replica_remesh
 from .rebalance import OwnershipTable, RebalanceConfig, RebalancePlanner, plan_moves
 
@@ -1786,3 +1794,74 @@ def serve_wave_emulated(
     rs_fnd = found.reshape(n_shards, n_shards, cap).transpose(0, 1)
     outs = [_scatter_back(origin[s], valid[s], rs_vhi[s], rs_vlo[s], rs_fnd[s], W) for s in range(n_shards)]
     return tuple(torch.stack(x) for x in zip(*outs))
+
+
+class MeshExchange:
+    """One rank's all-to-all over a process group: row ``d`` of a ``(n,
+    ...)`` tensor goes to rank ``d`` of the group, row ``s`` of the result
+    came from rank ``s`` (the reference's ``jax.lax.all_to_all(x[None],
+    "data", split_axis=1, concat_axis=0)``).  Counts its calls, the bytes
+    it hands over (the whole tensor, the row a rank keeps included) and its
+    host seconds; on the card it synchronises before and after, so the
+    seconds hold the collective alone, staging copies included."""
+
+    def __init__(self, group):
+        self.group = group
+        self.calls = 0
+        self.bytes = 0
+        self.seconds = 0.0
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.contiguous()
+        out = torch.empty_like(x)
+        if x.is_cuda:
+            torch.cuda.synchronize(x.device)
+        t0 = time.perf_counter()
+        dist.all_to_all_single(out, x, group=self.group)
+        if x.is_cuda:
+            torch.cuda.synchronize(x.device)
+        self.seconds += time.perf_counter() - t0
+        self.calls += 1
+        self.bytes += x.numel() * x.element_size()
+        return out
+
+
+def _check_stack(stacked_tree, n_shards: int) -> None:
+    if stacked_tree.root.shape[0] != n_shards:
+        raise ValueError(f"a stack of {stacked_tree.root.shape[0]} shards on a mesh whose data axis has {n_shards}")
+
+
+def serve_wave_sharded(
+    mesh, stacked_tree, stacked_ib, *, cap, depth, eps_inner, eps_leaf, route_fn=None, route_fn_prev=None,
+):
+    """The GET wave over the mesh's ``data`` axis: every rank runs
+    :func:`make_serve_wave`'s body on its own shard, the exchange a
+    :class:`MeshExchange` over the axis's process group, so B1 runs once
+    per rank per wave.
+
+    Returns ``fn(tree, ib, khi, klo)`` — or, with ``route_fn_prev`` (a live
+    ownership handoff), ``fn(tree, ib, khi, klo, epoch_tag)`` — for each
+    rank to call with its shard's pools (``shard_state(stacked_tree,
+    stacked_ib, rank)``) and its ``(1, W)`` request rows (``epoch_tag``
+    likewise); it gives back that rank's ``(1, W)`` rows of ``(vhi, vlo,
+    found, ok)``, the per-shard block of ``serve_wave_emulated``'s
+    outputs.  Every rank must call it with the same ``W``.  ``fn.exchange``
+    holds the exchange's counters."""
+    group, n_shards, _ = data_axis(mesh)
+    _check_stack(stacked_tree, n_shards)
+    body = make_serve_wave(
+        n_shards, cap, depth=depth, eps_inner=eps_inner, eps_leaf=eps_leaf,
+        route_fn=route_fn, route_fn_prev=route_fn_prev,
+    )
+    a2a = MeshExchange(group)
+
+    def fn(tree, ib, khi, klo, epoch_tag=None):
+        if (epoch_tag is None) != (route_fn_prev is None):
+            raise TypeError("epoch_tag goes with route_fn_prev, and only with it")
+        # with route_fn_prev every rank sends the tag exchange, so the ranks
+        # issue the same sequence of collectives
+        out = body(tree, ib, khi[0], klo[0], a2a, tag=None if epoch_tag is None else epoch_tag[0])
+        return tuple(o[None] for o in out)
+
+    fn.exchange = a2a
+    return fn

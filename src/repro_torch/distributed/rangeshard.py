@@ -44,8 +44,15 @@ all follow the admitted epoch, so mid-rebalance a donor's stale copy stays
 visible to old-epoch requests and invisible to new-epoch ones.
 
 JAX drops out-of-range scatter writes; here every such scatter writes into
-one scratch row or column that is sliced away.  The multi-device exchange
-(``range_wave_sharded``) is not part of this module yet.
+one scratch row or column that is sliced away.
+
+``range_wave_sharded`` runs the wave over the ranks of a mesh's ``data``
+axis: each rank replicates and bucketizes its own requests, four
+``all_to_all_single`` exchanges hand the sub-queries to their owners, each
+rank serves its share (B3 once a round through
+``kernels.ops.range_scan_loop``, no collective inside the loop, so ranks
+iterate independently), and six exchanges bring the rows back to the
+gather epilogue.
 """
 
 from __future__ import annotations
@@ -59,7 +66,8 @@ import torch
 from ..core import lookup
 from ..core.keys import limb_le, limbs_to_tensor, split_u64, u32
 from ..kernels import ops
-from .kvshard import _bucketize, _drop_scatter, shard_state
+from ..launch.mesh import data_axis
+from .kvshard import MeshExchange, _bucketize, _check_stack, _drop_scatter, shard_state
 
 
 def boundary_limbs(boundaries: np.ndarray, device="cpu") -> Tuple[torch.Tensor, torch.Tensor]:
@@ -324,3 +332,76 @@ def range_wave_emulated(
         for s in range(n_shards)
     ]
     return tuple(torch.stack(x) for x in zip(*outs)) + (rounds,)
+
+
+def range_wave_sharded(
+    mesh,
+    stacked_tree,
+    stacked_ib,
+    boundaries: np.ndarray,
+    *,
+    cap: int,
+    depth: int,
+    eps_inner: int,
+    limit: int,
+    max_leaves: int = 4,
+    fanout: Optional[int] = None,
+    max_rounds: int = 0,
+    boundaries_prev: Optional[np.ndarray] = None,
+):
+    """The scatter-gather RANGE wave over the mesh's ``data`` axis with the
+    in-mesh continuation loop; the exchanges (a :class:`MeshExchange`)
+    bracket the loop, which holds no collective, so ranks iterate
+    independently.
+
+    Returns ``fn(tree, ib, khi, klo)`` — or, with ``boundaries_prev`` (a live
+    rebalance handoff), ``fn(tree, ib, khi, klo, epoch_tag)`` — for each
+    rank to call with its shard's pools and its ``(1, W)`` request rows;
+    it gives back that rank's block of ``range_wave_emulated``'s eight
+    outputs: seven ``(1, W, ...)`` client rows and this rank's ``rounds``
+    as a ``(1,)`` int32.  ``fn.exchange`` holds the exchange's counters."""
+    group, n_shards, s = data_axis(mesh)
+    _check_stack(stacked_tree, n_shards)
+    F = n_shards if fanout is None else fanout
+    a2a = MeshExchange(group)
+
+    def fn(tree, ib, khi, klo, epoch_tag=None):
+        if (epoch_tag is None) != (boundaries_prev is None):
+            raise TypeError("epoch_tag goes with boundaries_prev, and only with it")
+        dev = khi.device
+        (bp_hi, bp_lo), (bc_hi, bc_lo) = _epoch_inputs(boundaries, boundaries_prev, dev)
+        ubp = _upper_bound_limbs(bp_hi, bp_lo)
+        ubc = _upper_bound_limbs(bc_hi, bc_lo)
+        h, l = khi[0], klo[0]
+        W = h.shape[0]
+        t = (
+            torch.ones(W, dtype=torch.int32, device=dev)
+            if epoch_tag is None
+            else torch.as_tensor(epoch_tag[0], dtype=torch.int32, device=dev)
+        )
+        rep_hi, rep_lo, rep_tag, dest, oob = _replicate(bp_hi, bp_lo, bc_hi, bc_lo, t, h, l, n_shards, F)
+        bk_hi, bk_lo, origin, valid, bk_tag = _bucketize(dest, rep_hi, rep_lo, n_shards, cap, extra=(rep_tag,))
+        rq_hi = a2a(bk_hi)
+        rq_lo = a2a(bk_lo)
+        rq_tag = a2a(bk_tag)
+        rq_live = a2a(valid.to(torch.int32))
+        rk, rv, rvalid, rtrunc, rounds = _serve_subqueries(
+            tree, ib, rq_hi, rq_lo, rq_tag, rq_live,
+            (ubp[0][s], ubp[1][s]), (ubc[0][s], ubc[1][s]),
+            depth=depth, eps_inner=eps_inner, limit=limit, max_leaves=max_leaves, max_rounds=max_rounds,
+        )
+        flat = (n_shards, cap * limit)
+        back = (n_shards, cap, limit)
+        rs_kh = a2a(rk[..., 0].reshape(flat)).reshape(back)
+        rs_kl = a2a(rk[..., 1].reshape(flat)).reshape(back)
+        rs_vh = a2a(rv[..., 0].reshape(flat)).reshape(back)
+        rs_vl = a2a(rv[..., 1].reshape(flat)).reshape(back)
+        rs_valid = a2a(rvalid.to(torch.int32).reshape(flat)).reshape(back)
+        rs_trunc = a2a(rtrunc.to(torch.int32).reshape(n_shards, cap))
+        outs = _gather_epilogue(
+            origin, valid, oob, rs_kh, rs_kl, rs_vh, rs_vl, rs_valid, rs_trunc, W=W, fanout=F, limit=limit,
+        )
+        return tuple(o[None] for o in outs) + (torch.tensor([rounds], dtype=torch.int32, device=dev),)
+
+    fn.exchange = a2a
+    return fn

@@ -42,7 +42,8 @@ def test_importing_the_port_loads_no_jax():
         "repro_torch.core.carry, repro_torch.core.datasets, repro_torch.core.perfmodel, "
         "repro_torch.serving.engine, repro_torch.serving.pipeline, repro_torch.serving.admission, "
         "repro_torch.launch.serve, repro_torch.distributed.kvshard, repro_torch.distributed.rangeshard, "
-        "repro_torch.distributed.snapshot, repro_torch.distributed.elastic, repro_torch.checkpoint.manager; "
+        "repro_torch.distributed.snapshot, repro_torch.distributed.elastic, repro_torch.checkpoint.manager, "
+        "repro_torch.launch.mesh, repro_torch.launch.kv_dryrun, repro_torch.launch.local_ranks, repro_torch.configs; "
         "assert 'jax' not in sys.modules and 'repro' not in sys.modules, sorted(sys.modules)"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -93,6 +94,23 @@ def test_store_defaults_to_the_card():
         DPAStore(keys, keys)
     with pytest.raises(RuntimeError, match="CUDA"):
         DPAStore(keys, keys, device="cuda")
+
+
+def test_mesh_and_dry_run_default_to_the_card(tmp_path):
+    """``make_debug_mesh()`` and ``kv_dryrun.run`` without a device mean the
+    card: without CUDA they raise before touching a process group or
+    loading a key."""
+    from repro_torch.launch import kv_dryrun, mesh
+
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: the default device is valid here")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mesh.make_debug_mesh()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mesh.make_production_mesh(multi_pod=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        kv_dryrun.run(False, tmp_path)
+    assert not any(tmp_path.iterdir())
 
 
 @pytest.fixture
@@ -557,3 +575,47 @@ def test_sharded_tiers_on_the_card_equal_the_cpu(cuda_device):
                         tree, ib, l[..., 0].contiguous(), l[..., 1].contiguous(), s.boundaries,
                         cap=cap // 8, depth=depth, eps_inner=4, limit=10, fanout=2))
                 _same_answer(*outs, (part, "range wave", cap))
+
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_on_one_card_equal_the_emulated_waves(cuda_device):
+    """2 ``gloo`` ranks on the card (the pools reach them as CUDA IPC
+    handles) during a live rebalance: a mixed-epoch GET wave, a GET wave
+    at a cap that overflows, the looped RANGE and a mixed-epoch RANGE, each
+    bitwise equal to the emulated wave on the card; B1 and B3 launched in
+    every rank."""
+    from repro_torch.core import TreeConfig, datasets
+    from repro_torch.core.keys import limbs_to_tensor, split_u64
+    from repro_torch.distributed import kvshard
+    from repro_torch.launch.local_ranks import WaveCase, spawn_waves
+
+    keys = datasets.sparse(1400, seed=73)
+    st = kvshard.ShardedDPAStore(keys, keys ^ np.uint64(0xE), 2, TreeConfig(growth=16.0), partition="range",
+                                 cache_cfg=None, device=cuda_device)
+    b_old = st.boundaries.copy()
+    storm = keys.max() + np.uint64(1) + np.arange(500, dtype=np.uint64) * np.uint64(3)
+    st.put(storm, storm ^ np.uint64(0xE))
+    st.flush()
+    assert st.begin_rebalance(st.planner.propose(st.boundaries))
+    tree, ib, depth = st.stacked()
+    rng = np.random.default_rng(2)
+    qs = np.concatenate([rng.choice(keys, 16), rng.choice(storm, 8), rng.integers(0, 2**63, 8, dtype=np.uint64)])
+    l = limbs_to_tensor(split_u64(qs.reshape(2, 16)), "cpu")
+    kh, kl = l[..., 0].contiguous(), l[..., 1].contiguous()
+    tag = torch.from_numpy((np.arange(32).reshape(2, 16) % 2).astype(np.int32))
+    g = dict(depth=depth, eps_inner=4, eps_leaf=8)
+    r = dict(depth=depth, eps_inner=4)
+    cases = [
+        WaveCase("serve", kh, kl, dict(cap=32, **g), boundaries=st.boundaries, boundaries_prev=b_old, epoch_tag=tag),
+        WaveCase("serve", kh, kl, dict(cap=3, **g), boundaries=st.boundaries),
+        WaveCase("range", kh, kl, dict(cap=32, limit=40, max_leaves=1, **r), boundaries=st.boundaries),
+        WaveCase("range", kh, kl, dict(cap=32, limit=5, max_leaves=8, **r), boundaries=st.boundaries,
+                 boundaries_prev=b_old, epoch_tag=tag),
+    ]
+    outs, reports = spawn_waves([(tree, ib)], cases, device=cuda_device, backend="gloo")
+    for i, (case, got) in enumerate(zip(cases, outs)):
+        for a, b in zip(got, case.emulated(tree, ib), strict=True):
+            assert torch.equal(a, b.cpu()), i
+    assert not bool(outs[1][3].all()) and int(outs[2][7].max()) > 1
+    for rep in reports:
+        assert rep["backend"] == "gloo" and rep["launches"]["get"] > 0 and rep["launches"]["range_walk"] > 0
