@@ -138,6 +138,21 @@ Phases, one JSON line each (any mismatch raises and exits non-zero):
                three shapes: one sequence's slot list (fewer slots than SMs),
                1024 and 16384 random slots.  It is checked here and not in
                phase 2 because its first shape comes from this path.
+6. lm       — the LM serving path at full width (no kernel of B1-B4 on
+               it): ``Engine.generate`` (batch 4, 1024-token prompts, 32
+               greedy steps, weights from a seeded generator on the card)
+               for glm4-9b (all 40 layers, 9.40 B parameters), mixtral-8x7b
+               cut to 4 of 32 layers (MoE top-2, the window flavour) and
+               mamba2-1.3b (48 layers: SSD prefill, recurrent decode), one
+               model at a time; init s, prefill ms, decode ms a step
+               (median, p99), tokens/s, peak memory and one profiled decode
+               step each.  glm4-9b's 32 decode logits are held against a
+               teacher-forced ``forward`` over the same tokens.
+   lm-parity — card == CPU on the same weights (drawn on the CPU): glm4-9b
+               at full width cut to 2 layers, then every causal family at
+               ``reduced(...)`` with ``n_layers = superblock`` (pixtral
+               through ``embeds``): prefill logits and caches, 8 decode
+               steps' logits, each greedy token equal (or a stated near-tie).
 
 Then the kernels' summary line and, last, ``{"ok": true, "device": ...}``.
 Exits non-zero without printing a result when CUDA is absent or when the
@@ -226,10 +241,39 @@ DIST_PARITY_W = 256  # requests per rank in dist-parity's waves
 DIST_PARITY_STORM = 3000  # sequential fresh keys past the last shard before its rebalance (as sharded-parity)
 # kv-dryrun: 5 exchanges of a (16, 4096) int32 tensor per device and wave
 KV_DRYRUN_BYTES = 5 * 16 * (65536 // 16) * 4
+# the LM phase: Engine.generate at full width (configs/*.py), a batch of 4
+# 1024-token prompts (2 x 2 attention blocks of 512), 32 greedy steps;
+# (arch, layers kept or None for all)
+LM_BATCH, LM_PROMPT, LM_STEPS = 4, 1024, 32
+LM_MODELS = (("glm4-9b", None), ("mixtral-8x7b", 4), ("mamba2-1.3b", None))
+# glm4-9b's decode logits against a teacher-forced forward over the same
+# tokens (the reference's own oracle): bf16 activations through 40 layers,
+# rounded at other points by the decode step's products than by the
+# prefill's, so per element |decode - forward| <= LM_TF_ATOL + LM_TF_RTOL
+# |forward|, and over the whole tensor a relative L2 error <= LM_TF_REL
+LM_TF_ATOL, LM_TF_RTOL, LM_TF_REL = 0.25, 2**-5, 2**-5
+# lm-parity: card == CPU on the same weights (drawn on the CPU): glm4-9b at
+# full width cut to 2 layers, and every causal family at reduced(...) with
+# n_layers = superblock; a batch of 2 16-token prompts, 8 greedy steps
+LM_PARITY_FULL_LAYERS, LM_PARITY_BATCH, LM_PARITY_PROMPT, LM_PARITY_STEPS = 2, 2, 16, 8
+LM_PARITY_FAMILIES = ("glm4-9b", "h2o-danube-3-4b", "mixtral-8x7b", "llama4-scout-17b-a16e", "mamba2-1.3b",
+                      "jamba-1.5-large-398b", "pixtral-12b")
+# card vs CPU: each element within one bf16 rounding of itself plus one of
+# the tensor's largest magnitude (cuBLAS and the CPU sum the products in
+# other orders); the hybrid's mamba layers compound those roundings until a
+# router near-tie may flip, so jamba is held to a relative L2 error instead
+# (as in tests/test_torch_lm.py)
+LM_PARITY_RTOL = LM_PARITY_SCALE = 2**-7
+LM_PARITY_REL = {"jamba-1.5-large-398b": 2**-4}
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def _smi_line() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
 def _setup():
@@ -544,9 +588,10 @@ def max_abs_err(torch, name: str, got, want) -> float:
     return err
 
 
-def profile_wave(torch, op: str, requests: int, run) -> None:
-    """One wave under ``torch.profiler``: its wall time, the device time and
-    busy share, the device launches and the six kernels that took longest."""
+def _profile(torch, run, top: int = 6) -> dict:
+    """One call under ``torch.profiler``: its wall time, the device time and
+    busy share, the device launches and the ``top`` kernels that took
+    longest."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -557,13 +602,14 @@ def profile_wave(torch, op: str, requests: int, run) -> None:
         wall_ms = (time.perf_counter() - t) * 1e3
     ev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_ms = sum(e.self_device_time_total for e in ev) / 1e3
-    top = sorted(ev, key=lambda e: -e.self_device_time_total)[:6]
-    emit({
-        "phase": "profile", "op": op, "requests": requests, "wall_ms_profiled": wall_ms,
-        "device_ms": dev_ms, "device_busy": dev_ms / wall_ms,
-        "device_launches": sum(e.count for e in ev),
-        "top": [[e.key[:70], e.self_device_time_total / 1e3, e.count] for e in top],
-    })
+    longest = sorted(ev, key=lambda e: -e.self_device_time_total)[:top]
+    return {"wall_ms_profiled": wall_ms, "device_ms": dev_ms, "device_busy": dev_ms / wall_ms,
+            "device_launches": sum(e.count for e in ev),
+            "top": [[e.key[:70], e.self_device_time_total / 1e3, e.count] for e in longest]}
+
+
+def profile_wave(torch, op: str, requests: int, run) -> None:
+    emit({"phase": "profile", "op": op, "requests": requests, **_profile(torch, run)})
 
 
 # ------------------------------------------------------- card == CPU
@@ -1879,6 +1925,199 @@ def serve_cli_phase(torch, dev) -> None:
     emit({"phase": "serve-cli", "runs": runs, "restore": restore})
 
 
+# ------------------------------------------------------------- LM phases
+
+
+def lm_phase(torch, dev) -> None:
+    """``Engine.generate`` at full width: glm4-9b (all 40 layers), mixtral
+    cut to 4 of 32 layers, mamba2-1.3b (all 48), weights from a seeded
+    generator on the card.  Per model: init s, prefill ms, decode ms a step
+    (median, p99), tokens/s, peak memory, one profiled decode step; for
+    glm4-9b the decode logits of the 32 steps against a teacher-forced
+    ``forward`` over the same tokens.  The path reaches none of B1-B4: their
+    launch counts, set to 0 before each model and read after it, must stay 0."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import build
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import Engine, ServeConfig
+
+    B, P, N = LM_BATCH, LM_PROMPT, LM_STEPS
+    for arch, layers in LM_MODELS:
+        t_phase = time.perf_counter()
+        build.reset_launches()
+        cfg = ARCHS[arch] if layers is None else dataclasses.replace(ARCHS[arch], n_layers=layers)
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()  # what earlier phases still hold
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        params = lm.init(cfg, SEED, device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t
+        params_gb = (torch.cuda.memory_allocated() - held) / 1e9
+        eng = Engine(cfg, params, ServeConfig(max_len=P + N + 8), device=dev)
+        toks = np.random.default_rng(SEED).integers(0, cfg.vocab_size, (B, P)).astype(np.int32)
+        eng.generate(toks, 2)  # warm-up: the library handles and the allocator's pools
+        t = time.perf_counter()
+        out, logits = eng.generate(toks, N, return_logits=True)
+        gen_s = time.perf_counter() - t
+        step_ms = np.array(eng.timings["step_s"]) * 1e3
+        assert out.shape == (B, N) and ((out >= 0) & (out < cfg.vocab_size)).all()
+        assert bool(torch.isfinite(logits.float()).all()), f"{arch}: non-finite decode logits"
+        # greedy: each generated token is the argmax of the step before it
+        assert np.array_equal(out[:, 1:], logits[:, :-1].argmax(-1).cpu().numpy()), f"{arch}: not greedy"
+        rec = {
+            "phase": "lm", "arch": arch, "layers": cfg.n_layers, "params": cfg.param_counts()[0],
+            "params_gb": params_gb, "batch": B, "prompt": P, "steps": N, "init_s": init_s,
+            "prefill_ms": eng.timings["prefill_s"] * 1e3, "decode_ms_median": float(np.median(step_ms)),
+            "decode_ms_p99": float(np.percentile(step_ms, 99)), "decode_ms_max": float(step_ms.max()),
+            "generate_s": gen_s, "tokens_per_s": B * N / gen_s,
+            "decode_tokens_per_s": B / (float(np.median(step_ms)) / 1e3),
+        }
+        if arch == "glm4-9b":
+            # the reference's oracle (tests/test_serving_paged.py:27): the same
+            # tokens teacher-forced; padded to whole 512-token blocks with
+            # tokens after the compared positions, which causal attention
+            # keeps out of them
+            seq = np.concatenate([toks, out], axis=1)
+            pad = -seq.shape[1] % 512
+            seq = np.concatenate([seq, np.zeros((B, pad), np.int32)], axis=1)
+            with torch.no_grad():
+                full, _, _ = lm.forward(cfg, params, tokens=torch.from_numpy(seq).to(dev))
+            want = full[:, P : P + N].float()
+            got = logits.float()
+            del full
+            err = (got - want).abs()
+            rel = float(torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want))
+            ok = bool((err <= LM_TF_ATOL + LM_TF_RTOL * want.abs()).all()) and rel <= LM_TF_REL
+            rec["teacher_forced"] = {
+                "max_abs_err": float(err.max()), "mean_abs_err": float(err.mean()), "rel_l2": rel,
+                "argmax_agree": float((got.argmax(-1) == want.argmax(-1)).float().mean()),
+                "tol": {"atol": LM_TF_ATOL, "rtol": LM_TF_RTOL, "rel_l2": LM_TF_REL}, "ok": ok,
+            }
+            if not ok:
+                emit(rec)
+                raise AssertionError(f"glm4-9b decode logits differ from the teacher-forced forward: {rec['teacher_forced']}")
+            del got, want, err
+        del logits
+        cache, last = eng.prefill(toks)
+        cur = torch.argmax(last, dim=-1)
+        rec["profiled_decode_step"] = _profile(torch, lambda: lm.decode_step(cfg, params, cache, cur, P), top=8)
+        rec["peak_device_gb"] = (torch.cuda.max_memory_allocated() - held) / 1e9  # the model's own
+        rec["held_before_gb"] = held / 1e9
+        rec["nvidia_smi"] = _smi_line()
+        rec["seconds"] = time.perf_counter() - t_phase
+        rec["kernel_launches"] = dict(build.launches)
+        emit(rec)
+        assert not any(rec["kernel_launches"].values()), f"{arch}: the LM path launched {rec['kernel_launches']}"
+        del params, eng, cache, last, cur
+        torch.cuda.empty_cache()
+
+
+def _greedy_agrees(name, step, tok, ref):
+    """(equal, near-ties): each of the card's tokens is the CPU's argmax of
+    ``ref``, or else the CPU's logit for it is within the parity tolerance
+    of the CPU's largest (bf16 logits over a large vocabulary tie often)."""
+    want = ref.argmax(-1)
+    same = tok == want
+    gap = ref.max(-1).values - ref.gather(1, tok[:, None].long())[:, 0]
+    tol = LM_PARITY_RTOL * ref.abs().max(-1).values + LM_PARITY_SCALE * float(ref.abs().max())
+    if not bool((same | (gap <= tol)).all()):
+        raise AssertionError(f"{name}: step {step}: greedy tokens {tok.tolist()} != the CPU's {want.tolist()}")
+    return int(same.sum()), int((~same).sum())
+
+
+def _lm_pair(torch, dev, cfg, rel=None):
+    """The same weights (drawn on the CPU) on the card and the CPU: prefill
+    logits and caches, then LM_PARITY_STEPS decode steps in which the card
+    picks each greedy token and the CPU decodes the card's tokens.  Every
+    logits tensor to the tolerance; each token equal to the CPU's argmax,
+    or else a near-tie (the CPU's logit for the card's token within the
+    tolerance of its largest).  Returns the counts."""
+    from repro_torch.models import lm
+    from repro_torch.models.carry import to_device
+    from repro_torch.serving.engine import cache_from_prefill
+
+    B, P = LM_PARITY_BATCH, LM_PARITY_PROMPT
+    params = lm.init(cfg, SEED, device="cpu")
+    on_card = to_device(params, dev)
+    rng = np.random.default_rng(SEED)
+    embeds = cfg.frontend != "none"
+
+    def inputs(shape):
+        if embeds:
+            return torch.from_numpy(rng.normal(size=(*shape, cfg.d_model)).astype(np.float32))
+        return torch.from_numpy(rng.integers(0, cfg.vocab_size, shape).astype(np.int32))
+
+    def check(what, got, want):
+        got, want = got.float().cpu(), want.float()
+        if rel is not None:
+            err = float(torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want))
+            ok = err <= rel
+        else:
+            d = (got - want).abs()
+            err = float(d.max())
+            ok = bool((d <= LM_PARITY_RTOL * want.abs() + LM_PARITY_SCALE * float(want.abs().max())).all())
+        if not ok:
+            raise AssertionError(f"{cfg.name}: {what} on the card differs from the CPU ({err})")
+        return err
+
+    x = inputs((B, P))
+    key = "embeds" if embeds else "tokens"
+    with torch.no_grad():
+        lc, _, pc = lm.forward(cfg, params, **{key: x}, mode="prefill")
+        lg, _, pg = lm.forward(cfg, on_card, **{key: x.to(dev)}, mode="prefill")
+    errs = [check("prefill logits", lg, lc)]
+    for a, b in zip(pg["slots"], pc["slots"]):
+        for k in a:
+            errs.append(check(f"prefill cache {k}", a[k], b[k]))
+    max_len = P + LM_PARITY_STEPS + 8
+    cc = cache_from_prefill(cfg, pc, B, max_len, "cpu")
+    cg = cache_from_prefill(cfg, pg, B, max_len, dev)
+    exact = near = 0
+    ref = lc[:, -1]  # the CPU's logits of the token about to be fed
+    tok = lg[:, -1].argmax(-1)  # the card's greedy choice
+    for i in range(LM_PARITY_STEPS):
+        if embeds:
+            step_c = inputs((B,))
+            step_g = step_c.to(dev)
+        else:
+            e, n = _greedy_agrees(cfg.name, i, tok.cpu(), ref.float())
+            exact, near = exact + e, near + n
+            step_c, step_g = tok.cpu(), tok
+        with torch.no_grad():
+            lgi, cg = lm.decode_step(cfg, on_card, cg, step_g, P + i)
+            lci, cc = lm.decode_step(cfg, params, cc, step_c, P + i)
+        errs.append(check(f"decode step {i} logits", lgi, lci))
+        ref, tok = lci, lgi.argmax(-1)
+    return {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+            "max_err": max(errs), "tol": "rel_l2" if rel is not None else "bf16", "tokens_equal": exact,
+            "tokens_near_tie": near, "tokens": 0 if embeds else B * LM_PARITY_STEPS}
+
+
+def lm_parity(torch, dev) -> None:
+    """Card == CPU on the same weights: glm4-9b at full width cut to 2
+    layers (built on the CPU and copied to the card), then every causal
+    family at ``reduced(...)`` with ``n_layers = superblock`` (pixtral
+    through ``embeds``)."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS, reduced
+
+    t_phase = time.perf_counter()
+    t = time.perf_counter()
+    full = _lm_pair(torch, dev, dataclasses.replace(ARCHS["glm4-9b"], n_layers=LM_PARITY_FULL_LAYERS))
+    full["seconds"] = time.perf_counter() - t
+    fams = []
+    for name in LM_PARITY_FAMILIES:
+        cfg = reduced(ARCHS[name])
+        fams.append(_lm_pair(torch, dev, dataclasses.replace(cfg, n_layers=cfg.superblock), LM_PARITY_REL.get(name)))
+    emit({"phase": "lm-parity", "full_width": full, "families": fams,
+          "seconds": time.perf_counter() - t_phase})
+    torch.cuda.empty_cache()
+
+
 # ----------------------------------------------------------- paged phase
 
 
@@ -2181,10 +2420,7 @@ def main() -> int:
     t_start = time.perf_counter()
 
     # ---- 1. device ---------------------------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = _smi_line()
     print(smi, flush=True)
     build_s = build.build_all()
     for name in build.SOURCES:
@@ -2394,6 +2630,8 @@ def main() -> int:
     serve_cli_phase(torch, dev)
 
     paged_phase(torch, dev, kernels)
+    lm_phase(torch, dev)
+    lm_parity(torch, dev)
 
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)

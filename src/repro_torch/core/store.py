@@ -49,22 +49,11 @@ from .lookup import IB_DEL, IB_PUT, InsertBuffers
 from .scancache import ScanCacheConfig, ScanCacheState
 from .tree import SEG_CAP, TreeConfig, TreeImage, build_image
 from .ttl import TTLTracker
+from ..device import resolve_device
 from ..kernels import ops
 
 STATUS_OK = insert_buffer.STATUS_OK
 STATUS_RETRY = insert_buffer.STATUS_RETRY
-
-
-def resolve_device(device) -> torch.device:
-    """``None`` means the card.  A CUDA device without CUDA raises: the
-    store never moves to the CPU unasked."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "DPAStore runs on the CUDA device by default and none is available; "
-            "pass device='cpu' to run the plain-torch path"
-        )
-    return dev
 
 
 @dataclass

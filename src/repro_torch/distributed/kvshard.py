@@ -73,9 +73,10 @@ from ..core.epoch import EpochRetiredError
 from ..core.keys import KEY_MAX, limb_hash, limb_hash_np, u32
 from ..core.lookup import InsertBuffers
 from ..core.scancache import ScanCacheConfig
-from ..core.store import STATUS_OK, DPAStore, resolve_device
+from ..core.store import STATUS_OK, DPAStore
 from ..core.tree import DeviceTree, TreeConfig
 from ..core.ttl import TTLTracker
+from ..device import resolve_device
 from ..kernels import ops
 from ..launch.mesh import data_axis
 from .elastic import plan_replica_remesh

@@ -39,7 +39,8 @@ import torch
 from ..configs.dpastore_service import CONFIG as SVC
 from ..core import datasets
 from ..core.keys import limbs_to_tensor, split_u64
-from ..core.store import DPAStore, resolve_device
+from ..core.store import DPAStore
+from ..device import resolve_device
 from ..core.tree import TreeConfig
 from ..distributed import kvshard
 from ..kernels import build

@@ -22,7 +22,7 @@ from typing import Tuple
 import torch
 import torch.distributed as dist
 
-from ..core.store import resolve_device
+from ..device import resolve_device
 
 TIMEOUT_S = 600  # a collective waits this long for a rank that does not come
 

@@ -1,4 +1,9 @@
-"""Serving launcher of the port: run the DPA-Store KV service on one store.
+"""Serving launcher of the port: run the DPA-Store KV service, or an LM.
+
+    # an LM (no --kv): batched prefill + greedy decode over a dense cache,
+    # weights drawn from a seed (glm4-9b at full width: 18.8 GB of bf16)
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4-9b --batch 4 --prompt 1024 --steps 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4-9b --reduced --steps 4 --device cpu
 
     # the paper's workload: a KV service handling GET/UPDATE/RANGE waves
     PYTHONPATH=src python -m repro_torch.launch.serve --kv --n-keys 100000 --waves 20
@@ -36,10 +41,9 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --kv --partition range \\
         --shards 2 --reshard-to 4 --snapshot-dir /tmp/kv_snap
 
-The store (every shard of a sharded tier) runs on the CUDA card; ``--device
-cpu`` runs the plain-torch path on the CPU.  All shards share the one
-device.  The LM decode loop (no ``--kv``) is not ported yet: it fails at
-once, naming the ROADMAP.md item.
+The store (every shard of a sharded tier) and the LM run on the CUDA card;
+``--device cpu`` runs the plain-torch path on the CPU.  All shards share
+the one device.
 """
 
 from __future__ import annotations
@@ -51,14 +55,17 @@ import time
 import numpy as np
 import torch
 
+from ..configs import ARCHS, reduced
 from ..core import DPAStore, EpochRetiredError, TreeConfig, perfmodel
 from ..core import keys as keymod
 from ..core.datasets import sparse, zipf_indices
 from ..core.scancache import ScanCacheConfig
 from ..distributed.kvshard import ShardedDPAStore
 from ..distributed.snapshot import save_snapshot
+from ..device import resolve_device
+from ..models import lm
 from ..serving.admission import ADMIT_RETRY, AdmissionController, TenantPolicy
-from ..serving.engine import KVWaveDriver
+from ..serving.engine import Engine, KVWaveDriver, ServeConfig
 from ..serving.pipeline import PipelinedStore
 
 def device_name(device: torch.device) -> str:
@@ -451,12 +458,31 @@ def serve_kv(args):
         )
 
 
-def _refuse_unported(args) -> None:
-    """Fail at once on a mode the port does not have yet."""
-    if not args.kv:
-        raise NotImplementedError(
-            "the LM decode loop (no --kv) is not ported yet: ROADMAP.md queue A item 11"
-        )
+def serve_lm(args):
+    """The reference's ``serve_lm``: random weights from seed 0, a random
+    prompt, greedy generation; prints prefill ms, decode ms a step and
+    tokens/s on the host clock."""
+    cfg = ARCHS[args.arch]
+    if args.reduced:
+        cfg = reduced(cfg)
+    dev = resolve_device(args.device)
+    t0 = time.perf_counter()
+    params = lm.init(cfg, 0, device=dev)
+    init_s = time.perf_counter() - t0
+    eng = Engine(cfg, params, ServeConfig(max_len=args.prompt + args.steps + 8), device=dev)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab_size, (args.batch, args.prompt)).astype(np.int32)
+    t0 = time.perf_counter()
+    out = eng.generate(toks, args.steps)
+    dt = time.perf_counter() - t0
+    step_s = eng.timings["step_s"]
+    step_ms = 1e3 * float(np.median(step_s)) if step_s else 0.0
+    print(f"[serve-lm] {cfg.name} on {device_name(dev)}: {cfg.param_counts()[0]:,} params "
+          f"drawn in {init_s:.2f}s")
+    print(f"[serve-lm] generated {out.shape} tokens in {dt:.2f}s: prefill "
+          f"{1e3 * eng.timings['prefill_s']:.2f} ms ({args.batch}x{args.prompt}), decode "
+          f"{step_ms:.2f} ms a step (median), {out.size / dt:.1f} tokens/s")
+    print(f"[serve-lm] sample: {out[0][:16].tolist()}")
 
 
 def main(argv=None):
@@ -465,8 +491,8 @@ def main(argv=None):
     ap.add_argument(
         "--device",
         default=None,
-        help="device of the store: the CUDA card unless given (without CUDA "
-        "the store raises); 'cpu' runs the plain-torch path",
+        help="device of the store or the LM: the CUDA card unless given "
+        "(without CUDA they raise); 'cpu' runs the plain-torch path",
     )
     ap.add_argument(
         "--partition",
@@ -611,16 +637,16 @@ def main(argv=None):
     ap.add_argument("--n-keys", type=int, default=100_000)
     ap.add_argument("--waves", type=int, default=16)
     ap.add_argument("--wave-size", type=int, default=1024)
-    # the LM mode's options (not ported yet): accepted by the parser so that
-    # _refuse_unported can name what ports them
-    ap.add_argument("--arch", default="glm4-9b")
+    # the LM mode (no --kv)
+    ap.add_argument("--arch", default="glm4-9b", choices=sorted(ARCHS))
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--prompt", type=int, default=16)
     ap.add_argument("--steps", type=int, default=16)
     args = ap.parse_args(argv)
-    _refuse_unported(args)
-    if args.tenants > 1:
+    if not args.kv:
+        serve_lm(args)
+    elif args.tenants > 1:
         serve_kv_tenants(args)
     else:
         serve_kv(args)

@@ -1,2 +1,4 @@
-"""Model building blocks of the port; so far only what the paged KV cache
-path needs (``layers.decode_attention``)."""
+"""Model building blocks of the port: ``layers`` (norms, rotary embedding,
+blockwise and decode attention, SwiGLU), ``moe``, ``mamba``, ``lm`` (the
+composable stack of the ten configs) and ``carry`` (the JAX package's
+params and caches into tensors)."""

@@ -1,12 +1,13 @@
-"""Serving engine of the port: the multi-tenant wave scheduler
-(``KVWaveDriver``) of the JAX package's ``serving/engine.py``, and
+"""Serving engine of the port, the JAX package's ``serving/engine.py``:
+``Engine`` and ``ServeConfig`` (batched prefill and greedy decode over a
+dense cache), the multi-tenant wave scheduler ``KVWaveDriver``, and
 ``PagedAttentionLayer``, one attention layer served through the
-learned-index paged KV cache.  ``Engine`` and ``ServeConfig`` (dense-cache
-batched prefill and decode) are still to port.
+learned-index paged KV cache.
 """
 
 from __future__ import annotations
 
+import time
 from collections import OrderedDict, deque
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
@@ -14,11 +15,99 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..configs.base import ArchConfig
 from ..core import keys as keymod
 from ..core.api import RangeResult
+from ..device import resolve_device
+from ..models import lm
 from ..models.layers import decode_attention
 from .admission import ADMIT_OK, ADMIT_RETRY, AdmissionController
 from .paged_cache import PagedCache
+
+
+@dataclass
+class ServeConfig:
+    max_len: int = 256
+    temperature: float = 0.0  # 0 => greedy, the only decode there is
+
+
+def cache_from_prefill(cfg: ArchConfig, pre, batch: int, max_len: int, device):
+    """The ``max_len`` decode cache built from the cache that
+    ``lm.forward(..., mode="prefill")`` returned: the prefill cache's last
+    ``W`` positions go to slots ``0..W-1`` of each attention cache (``W``
+    the smaller length), and each SSM slot takes the prefill's state as is.
+    A window or chunk ring lines up with this copy only when the prompt
+    fits in it, as in the reference."""
+    cache = lm.init_cache(cfg, batch, max_len, device)
+    for pc, dst in zip(pre["slots"], cache["slots"]):
+        if "k" in dst:
+            W = min(pc["k"].shape[2], dst["k"].shape[2])
+            dst["k"][:, :, :W] = pc["k"][:, :, -W:]
+            dst["v"][:, :, :W] = pc["v"][:, :, -W:]
+        else:
+            dst["h"] = pc["h"]
+            dst["conv"] = pc["conv"]
+    return cache
+
+
+class Engine:
+    """Batched prefill and greedy decode over a dense cache.
+
+    ``params`` must already be on ``device`` (``None`` means the card, and
+    without CUDA the engine raises).  After each ``generate`` the host-clock
+    seconds of its prefill (up to the first token on the host) and of each
+    decode step (one host copy a step) are in ``timings``."""
+
+    def __init__(self, cfg: ArchConfig, params, scfg: Optional[ServeConfig] = None, device=None):
+        if not cfg.causal:
+            raise ValueError("encoders do not decode")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        if params["embed"].device.type != self.device.type:
+            raise ValueError(f"params are on {params['embed'].device}, the engine on {self.device}")
+        self.params = params
+        # a fresh ServeConfig per engine: a default instance in the signature
+        # would be shared by every Engine
+        self.scfg = scfg if scfg is not None else ServeConfig()
+        if self.scfg.temperature != 0.0:
+            raise ValueError(f"temperature {self.scfg.temperature}: only greedy decode (0) is served")
+        self.timings: Dict[str, object] = {}
+
+    def prefill(self, tokens: np.ndarray):
+        """tokens (B, S) -> (cache sized max_len by ``cache_from_prefill``,
+        last logits (B, V) on the device)."""
+        B, S = tokens.shape
+        logits, _, pre = lm.forward(
+            self.cfg, self.params, tokens=torch.as_tensor(np.asarray(tokens), device=self.device), mode="prefill"
+        )
+        return cache_from_prefill(self.cfg, pre, B, self.scfg.max_len, self.device), logits[:, -1]
+
+    def generate(self, tokens: np.ndarray, n_steps: int, return_logits: bool = False):
+        """Greedy: ``n_steps`` tokens (B, n_steps) as numpy, the first from
+        the prefill's last logits, then one decode step each (argmax on the
+        device, one host copy a step).  With ``return_logits`` also the
+        (B, n_steps, V) logits of the ``n_steps`` decode steps, on the
+        device: step ``i`` reads token ``i`` at position ``S + i``."""
+        B, S = tokens.shape
+        if S + n_steps > self.scfg.max_len:
+            raise ValueError(f"prompt {S} + {n_steps} steps exceed max_len {self.scfg.max_len}")
+        t0 = time.perf_counter()
+        cache, last = self.prefill(tokens)
+        cur = torch.argmax(last, dim=-1)
+        out = [cur.cpu()]
+        prefill_s = time.perf_counter() - t0
+        steps, logits_all = [], []
+        for i in range(n_steps):
+            t = time.perf_counter()
+            logits, cache = lm.decode_step(self.cfg, self.params, cache, cur, S + i)
+            cur = torch.argmax(logits, dim=-1)
+            out.append(cur.cpu())
+            steps.append(time.perf_counter() - t)
+            if return_logits:
+                logits_all.append(logits)
+        self.timings = {"prefill_s": prefill_s, "step_s": steps}
+        toks = torch.stack(out[:n_steps], dim=1).numpy().astype(np.int32)
+        return (toks, torch.stack(logits_all, dim=1)) if return_logits else toks
 
 
 @dataclass

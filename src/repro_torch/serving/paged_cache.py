@@ -31,7 +31,7 @@ import torch
 
 from ..core import DPAStore, TreeConfig
 from ..core.hotcache import CacheConfig
-from ..core.store import resolve_device
+from ..device import resolve_device
 from ..kernels import ops
 
 BLOCK_BITS = 20  # up to 2^20 blocks per sequence

@@ -29,7 +29,8 @@ def _imported_roots(path: Path):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "chip_designs.py"]
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "chip_designs.py",
+                                          ROOT / "examples" / "torch_kv_serve.py"]
     assert len(files) > 10
     for f in files:
         bad = {m for m in _imported_roots(f) if m in ("jax", "jaxlib", "repro")}
@@ -43,7 +44,9 @@ def test_importing_the_port_loads_no_jax():
         "repro_torch.serving.engine, repro_torch.serving.pipeline, repro_torch.serving.admission, "
         "repro_torch.launch.serve, repro_torch.distributed.kvshard, repro_torch.distributed.rangeshard, "
         "repro_torch.distributed.snapshot, repro_torch.distributed.elastic, repro_torch.checkpoint.manager, "
-        "repro_torch.launch.mesh, repro_torch.launch.kv_dryrun, repro_torch.launch.local_ranks, repro_torch.configs; "
+        "repro_torch.launch.mesh, repro_torch.launch.kv_dryrun, repro_torch.launch.local_ranks, repro_torch.configs, "
+        "repro_torch.models.layers, repro_torch.models.moe, repro_torch.models.mamba, repro_torch.models.lm, "
+        "repro_torch.models.carry, repro_torch.device, runpy; runpy.run_path('examples/torch_kv_serve.py'); "
         "assert 'jax' not in sys.modules and 'repro' not in sys.modules, sorted(sys.modules)"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -111,6 +114,30 @@ def test_mesh_and_dry_run_default_to_the_card(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         kv_dryrun.run(False, tmp_path)
     assert not any(tmp_path.iterdir())
+
+
+def test_lm_defaults_to_the_card():
+    """``lm.init``, ``lm.init_cache``, ``Engine`` and the launcher's LM mode
+    without a device mean the card: without CUDA they raise."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import Engine
+
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: the default device is valid here")
+    cfg = dataclasses.replace(reduced(ARCHS["glm4-9b"]), n_layers=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lm.init(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lm.init_cache(cfg, 1, 8)
+    params = lm.init(cfg, 0, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Engine(cfg, params)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--arch", "glm4-9b", "--reduced", "--steps", "1"])
 
 
 @pytest.fixture
@@ -619,3 +646,35 @@ def test_two_gloo_ranks_on_one_card_equal_the_emulated_waves(cuda_device):
     assert not bool(outs[1][3].all()) and int(outs[2][7].max()) > 1
     for rep in reports:
         assert rep["backend"] == "gloo" and rep["launches"]["get"] > 0 and rep["launches"]["range_walk"] > 0
+
+
+@pytest.mark.cuda
+def test_engine_on_the_card_equals_the_cpu(cuda_device):
+    """``Engine`` on the card == on the CPU on the same weights (drawn on the
+    CPU, copied over), for a dense, a MoE and a hybrid reduced config:
+    greedy tokens equal; the prefill's last logits to one bf16 rounding of
+    themselves plus one of their largest magnitude (cuBLAS and the CPU sum
+    the products in other orders), the hybrid's to a relative L2 error of
+    2^-4 (its mamba layers compound those roundings; ``tests/test_torch_lm.py``
+    holds its layers one by one)."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.models import lm
+    from repro_torch.models.carry import to_device
+    from repro_torch.serving.engine import Engine, ServeConfig
+
+    for name in ("glm4-9b", "mixtral-8x7b", "jamba-1.5-large-398b"):
+        cfg = reduced(ARCHS[name])
+        cfg = dataclasses.replace(cfg, n_layers=cfg.superblock)
+        params = lm.init(cfg, 0, device="cpu")
+        toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 16)).astype(np.int32)
+        cpu = Engine(cfg, params, ServeConfig(max_len=32), device="cpu")
+        card = Engine(cfg, to_device(params, cuda_device), ServeConfig(max_len=32), device=cuda_device)
+        want = cpu.prefill(toks)[1].float()
+        got = card.prefill(toks)[1].float().cpu()
+        if name.startswith("jamba"):
+            assert float(torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want)) <= 2**-4, name
+        else:
+            torch.testing.assert_close(got, want, rtol=2**-7, atol=2**-7 * float(want.abs().max()), msg=name)
+        np.testing.assert_array_equal(card.generate(toks, 8), cpu.generate(toks, 8), err_msg=name)
