@@ -99,7 +99,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         sys.exit("chip_designs: no CUDA device")
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
-    from chip_smoke import time_ms
+    from chip_smoke import draw_sparse_keys, time_ms
     from repro_torch.core import DPAStore, datasets
     from repro_torch.kernels import build, paged_gather, traverse
 
@@ -161,13 +161,7 @@ def main() -> int:
         return 0
 
     # ---- B1 and B2: a store of 50M keys ---------------------------------
-    g0 = torch.Generator(device=dev).manual_seed(0)
-    x = torch.randint(-2**63, 2**63 - 1, (N_KEYS + N_KEYS // 50,), generator=g0, device=dev, dtype=torch.int64)
-    x = torch.unique(x ^ (-2**63))  # int64 order of x ^ 2^63 is the u64 order of x
-    x = x[torch.sort(torch.randperm(x.numel(), generator=g0, device=dev)[:N_KEYS]).values] ^ (-2**63)
-    keys = x.cpu().numpy().view(np.uint64)
-    keys = keys[keys != np.uint64(2**64 - 1)]
-    del x
+    keys = draw_sparse_keys(torch, dev, N_KEYS, 0)
     st = DPAStore(keys, keys ^ np.uint64(0x5DEECE66D), device=dev)
     z = keys[datasets.zipf_indices(keys.size, 3 * 65536, alpha=0.99, seed=0)]
     st.get(z[:65536])

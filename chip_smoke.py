@@ -8,6 +8,8 @@ Phases, one JSON line each (any mismatch raises and exits non-zero):
 1. device   — the card's name and power limit (also printed as
                ``nvidia-smi`` gives them), torch and CUDA versions, and the
                seconds spent building the CUDA kernels from ``src/repro_torch/csrc``.
+   Phase 1 also times its set-up step by step (``setup_s``: the 50M keys,
+   the store build, the oracle, the zipf draw).
 2. kernels  — on the main-path store's state after some buffered writes and
                cache admits, each kernel (GET, cache probe P=2 and P=1, range
                walk) against its plain-torch version on the same CUDA tensors:
@@ -153,6 +155,24 @@ Phases, one JSON line each (any mismatch raises and exits non-zero):
                ``reduced(...)`` with ``n_layers = superblock`` (pixtral
                through ``embeds``): prefill logits and caches, 8 decode
                steps' logits, each greedy token equal (or a stated near-tie).
+7. train    — the training path at full width (no kernel of B1-B4 on it):
+               glm4-9b cut to 8 of 40 layers (2.87 B parameters), AdamW,
+               block remat, 2 x 4096 tokens a step in 2 microbatches, data
+               from ``SyntheticLM`` as ``launch/train.py`` streams it.  A
+               step at microbatches=1 and the warm-up step at 2 from the same
+               state (equal updates; the loss equal to ``cross_entropy`` of a
+               no_grad forward), 4 timed steps on one repeated batch (the
+               loss falls), one profiled step: init s, step ms, tokens/s,
+               peak memory, model-FLOP share, the device's busy share and
+               top ops.
+   train-parity — card == CPU on ``make_train_step`` for one reduced
+               config of each family (AdamW, Adafactor, compression, 2
+               microbatches), 2 steps, each from the same state.
+   train-cli — ``python -m repro_torch.launch.train --reduced`` with a
+               checkpoint every 2 steps, run, restored (bitwise) and run
+               again as a user runs it; its losses and step-8 state equal an
+               uninterrupted run's.  B1-B4 must not launch in any of the
+               three.
 
 Then the kernels' summary line and, last, ``{"ok": true, "device": ...}``.
 Exits non-zero without printing a result when CUDA is absent or when the
@@ -202,7 +222,7 @@ PARITY_RETAIN, PARITY_GROWTH = 40, 64.0
 NO_DEADLINE = np.iinfo(np.int64).max  # the oracle's deadline of a key without a TTL
 # the front end: launch/serve.py's serve_kv loop at the service config's
 # scale (dpastore_service.py: 50M keys, 65536-request waves), per depth
-FRONTEND_WAVES = 32  # waves per queue depth: 2 GET, 1 UPDATE, 1 RANGE in every 4 (64 before the sharded phases)
+FRONTEND_WAVES = 16  # waves per queue depth: 2 GET, 1 UPDATE, 1 RANGE in every 4 (64 before the sharded phases, 32 before the training phases)
 FRONTEND_PROFILED = 8  # waves at depth 2 under torch.profiler
 FRONTEND_RANGE = 64  # RANGE starts per wave (serve.py: q[:64], limit 10)
 # frontend-parity: twin 1M-key stores over serve_kv's script with submit lag
@@ -265,6 +285,65 @@ LM_PARITY_FAMILIES = ("glm4-9b", "h2o-danube-3-4b", "mixtral-8x7b", "llama4-scou
 # (as in tests/test_torch_lm.py)
 LM_PARITY_RTOL = LM_PARITY_SCALE = 2**-7
 LM_PARITY_REL = {"jamba-1.5-large-398b": 2**-4}
+# the train phase: glm4-9b at full width (configs/glm4_9b.py) cut to 8 of its
+# 40 layers (2.87 B parameters; AdamW's f32 moments for all 40 need ~113 GB),
+# train_4k's 4096-token sequence with the global batch cut from 256 to 2, two
+# microbatches of one sequence, block remat, launch/train.py's data stream;
+# lr 3e-5: at the launcher's 3e-4 the first, sign-like AdamW steps overshoot
+# at this width (a repeated batch's loss went 16.1, 20.6, 25.3, 13.3)
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_MB, TRAIN_STEPS, TRAIN_LR = 8, 2, 2, 4, 3e-5
+BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 peak (data sheet)
+# microbatches 1 vs 2: tests/test_training.py::test_microbatch_equivalence's
+# tolerances (loss, parameters), and, since AdamW's first step moves each
+# parameter by about lr whatever its gradient, the accumulated gradients
+# themselves: each first moment (m = (1 - b1) clip g) leaf to TRAIN_REL's
+# relative L2 error, each parameter within 2 lr plus one bf16 ulp and at most
+# a TRAIN_REL share beyond one ulp; the first step's loss against
+# cross_entropy of a no_grad forward
+TRAIN_MB_LOSS_ATOL, TRAIN_MB_PARAM_ATOL, TRAIN_LOSS_RTOL = 5e-2, 2e-2, 2**-7
+# train-parity: card == CPU at reduced(...) sizes with n_layers = superblock
+# (as lm-parity), 2 steps, each step from the same state on both (the CPU's,
+# carried to the card before it), to tests/test_torch_training.py's
+# tolerances for one step: losses and gradient norms 2^-7, each gradient leaf
+# the optimizer takes in a relative L2 error of 2^-5, parameters at most a
+# 2^-5 share beyond one bf16 ulp (AdamW: each within 2 lr plus one ulp), and
+# the optimizer on identical inputs (MOMENT_RTOL, one bf16 ulp).  The moments
+# are reported: a second moment is quadratic in the gradient, so 2^-5 on it
+# would be 2^-6 on the gradient (jamba's A_log came out 0.035 in run AM).
+# The hybrid's mamba layers compound last-bit differences (as in lm-parity):
+# its gradient leaves are held to LM_PARITY_REL's 2^-4 (a mamba dt_bias leaf
+# came out 0.035 in run AN; the same leaf is 0.028 off between the port and
+# the JAX package on the CPU), and until a router near-tie flips (jamba's
+# first step routed 2 tokens otherwise in run AL, its router leaf 0.25 off
+# in AG and AJ, a dt_bias leaf upstream 0.081 in AL): where the card and the
+# CPU make some top-k decisions differently, the card is held to the CPU's
+# step replayed with the card's decisions.  With gradient compression the
+# gradients that enter it are held per leaf to 2^-5, and the card's error
+# feedback must equal compress_tree of the card's own gradients on the CPU
+# bitwise.  Adafactor: jamba and, dense, llama3-405b
+TRAIN_PARITY = (("glm4-9b", {}), ("mixtral-8x7b", {}), ("mamba2-1.3b", {}), ("jamba-1.5-large-398b", {}),
+                ("llama3-405b", {}), ("hubert-xlarge", {"grad_compression": True}),
+                ("pixtral-12b", {"microbatches": 2}))
+TRAIN_PARITY_SEQ, TRAIN_PARITY_BATCH, TRAIN_PARITY_STEPS, TRAIN_PARITY_LR = 64, 4, 2, 1e-3
+TRAIN_RTOL, TRAIN_REL, MOMENT_RTOL = 2**-7, 2**-5, 1e-6
+# train-cli: python -m repro_torch.launch.train --reduced, train_4k cut to 8
+# sequences of 1024 tokens (at 256 x 4096 autograd keeps ~2 GB of f32 scores
+# for each of a layer's 64 attention block pairs)
+TRAIN_CLI_ARGV = ("--reduced", "--batch", "8", "--seq", "1024", "--ckpt-every", "2")
+
+
+def draw_sparse_keys(torch, dev, n: int, seed: int) -> np.ndarray:
+    """``n`` sorted unique uniform u64 keys (``datasets.sparse``'s
+    distribution, other draws) made on the card from ``seed``: unique and
+    sorted there in seconds, where ``datasets.sparse``' numpy took 209 s of
+    the card machine's host at 50M keys (run AF).  2^64 - 1, which the store
+    rejects, is dropped."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randint(-2**63, 2**63 - 1, (n + n // 50,), generator=g, device=dev, dtype=torch.int64)
+    x = torch.unique(x ^ (-2**63))  # int64 order of x ^ 2^63 is the u64 order of x
+    x = x[torch.sort(torch.randperm(x.numel(), generator=g, device=dev)[:n]).values] ^ (-2**63)
+    keys = x.cpu().numpy().view(np.uint64)
+    return keys[keys != np.uint64(2**64 - 1)]
 
 
 def emit(obj) -> None:
@@ -588,14 +667,16 @@ def max_abs_err(torch, name: str, got, want) -> float:
     return err
 
 
-def _profile(torch, run, top: int = 6) -> dict:
+def _profile(torch, run, top: int = 6, cpu_ops: bool = True) -> dict:
     """One call under ``torch.profiler``: its wall time, the device time and
     busy share, the device launches and the ``top`` kernels that took
-    longest."""
+    longest.  ``cpu_ops=False`` records the device side only (a train
+    step's ~10^5 launches would bring ~10^6 host events to sort)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu_ops else [])
+    with profile(activities=activities) as prof:
         t = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -2118,6 +2199,527 @@ def lm_parity(torch, dev) -> None:
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------- training phases
+
+
+def _no_kernel_launches(build, what: str) -> dict:
+    """B1-B4's launch counts since the last reset: the training path
+    reaches none of them."""
+    launches = dict(build.launches)
+    assert not any(launches.values()), f"{what}: the training path launched {launches}"
+    return launches
+
+
+def train_flops(cfg, batch: int, seq: int) -> dict:
+    """FLOPs of one train step of a dense config.  ``total``, as the port
+    executes them: 6 N T for the matmul parameters (each layer's projections
+    and MLP, and the head; the embedding is a gather), the remat forward of
+    the layers (2 N_layers T), and attention's two products as the masked
+    scan runs them (every 512 x 512 block pair, causal or not: 4 B S^2 H hd
+    a layer forward, again in the remat forward, twice that backward).
+    ``model``, the conventional model-FLOP count: 6 N T plus causal
+    attention's products forward and backward (6 B S^2 H hd a layer, half
+    of PaLM's 12 L H hd S per token), no remat."""
+    assert cfg.family == "dense"
+    D, hd, T = cfg.d_model, cfg.head_dim_, batch * seq
+    per_layer = 2 * D * cfg.n_heads * hd + 2 * D * cfg.n_kv_heads * hd + 3 * D * cfg.d_ff
+    n_layers, n_head = cfg.n_layers * per_layer, D * cfg.vocab_size
+    attn = 4 * batch * seq * seq * cfg.n_heads * hd * cfg.n_layers
+    out = {"6NT": 6 * (n_layers + n_head) * T, "remat_forward": 2 * n_layers * T, "attention": 4 * attn}
+    out["total"] = sum(out.values())
+    out["causal_attention"] = 6 * batch * seq * seq * cfg.n_heads * hd * cfg.n_layers
+    out["model"] = out["6NT"] + out["causal_attention"]
+    return out
+
+
+def _same_first_update(torch, state, p_ref, m_ref, lr: float) -> dict:
+    """``state`` after its first AdamW step against the parameters and
+    first moments (host copies) of another first step from the same state
+    on the same batch, leaf by leaf on the card: the worst relative L2 error
+    of ``m`` (the clipped gradients, (1 - b1) clip g), and the parameters
+    beyond 2 lr plus one bf16 ulp and beyond one ulp."""
+    from repro_torch.checkpoint.manager import tree_flatten
+
+    dev = tree_flatten(state["params"])[0][0].device
+    worst, worst_name, whole_num, whole_den = 0.0, None, 0.0, 0.0
+    for n, a, b in zip(_leaf_paths(state["opt"]["m"]), tree_flatten(state["opt"]["m"])[0], m_ref):
+        b = b.to(dev)
+        num, den = float(torch.sum(torch.square(a - b))), float(torch.sum(torch.square(b)))
+        if (e := (num / den) ** 0.5 if den else num**0.5) >= worst:
+            worst, worst_name = e, n
+        whole_num, whole_den = whole_num + num, whole_den + den
+    beyond = beyond_2lr = total = 0
+    max_diff = 0.0
+    for a, b in zip(tree_flatten(state["params"])[0], p_ref):
+        want = b.to(dev).float()
+        d = (a.float() - want).abs()
+        ulp = torch.where(want == 0, 0.0, torch.ldexp(torch.ones_like(want), torch.frexp(want).exponent - 8))
+        beyond += int((d > ulp).sum())
+        beyond_2lr += int((d > 2 * lr + ulp).sum())
+        total += want.numel()
+        max_diff = max(max_diff, float(d.max()))
+    return {"m_worst_leaf": worst, "m_worst_leaf_name": worst_name, "m_whole_tree": (whole_num / whole_den) ** 0.5,
+            "max_param_diff": max_diff, "params_beyond_ulp": beyond, "params_beyond_2lr_ulp": beyond_2lr,
+            "params": total}
+
+
+def train_phase(torch, dev) -> None:
+    """The training path at full width: glm4-9b cut to 8 of 40 layers,
+    AdamW (its config's optimizer) at TRAIN_LR, block remat, train_4k's
+    4096-token sequence at a global batch of 2, weights from seed 7 on the
+    card, data from ``SyntheticLM`` as ``launch/train.py`` streams it.  A step at
+    microbatches=1 from the seed's state, then the warm-up step at
+    microbatches=2 from the same state on the same batch (the two updates
+    to the reference's microbatch-equivalence tolerances; its loss equal to
+    ``cross_entropy`` of a no_grad ``forward`` of that batch), 4 timed steps
+    on one repeated batch (the loss must fall) and one profiled step.  B1-B4
+    must not launch."""
+    import dataclasses
+
+    from repro_torch.checkpoint.manager import tree_flatten
+    from repro_torch.configs import ARCHS, SHAPES
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import build
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import layers, lm
+    from repro_torch.training import optimizer, train_step as ts
+
+    t_phase = time.perf_counter()
+    build.reset_launches()
+    cfg = dataclasses.replace(ARCHS["glm4-9b"], n_layers=TRAIN_LAYERS)
+    assert cfg.remat == "block" and cfg.optimizer == "adamw"
+    B, S = TRAIN_BATCH, SHAPES["train_4k"].seq_len
+    data = SyntheticLM(cfg, ShapeConfig("train_4k", S, B, "train"), DataConfig(seed=train_cli.SEED))
+    opt = optimizer.OptConfig(kind=cfg.optimizer, lr=TRAIN_LR)
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()  # what earlier phases still hold
+    torch.cuda.reset_peak_memory_stats()
+    b0 = train_cli.to_device(data.global_batch(0), dev)
+
+    def sync_s(t):
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    # microbatches=1: its new parameters are kept on the host
+    t1 = ts.TrainConfig(opt=opt, microbatches=1)
+    state = ts.init_state(cfg, t1, train_cli.SEED, device=dev)
+    with torch.no_grad():
+        logits, _, _ = lm.forward(cfg, state["params"], tokens=b0["tokens"])
+        ce_forward = float(layers.cross_entropy(logits[:, :-1], b0["labels"][:, 1:]))
+    del logits
+    t = time.perf_counter()
+    state, m1 = ts.make_train_step(cfg, t1)(state, b0)
+    mb1_s = sync_s(t)
+    loss_mb1 = float(m1["loss"])
+    p_mb1 = [x.cpu() for x in tree_flatten(state["params"])[0]]
+    m_mb1 = [x.cpu() for x in tree_flatten(state["opt"]["m"])[0]]
+    peak_mb1_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
+    del state, m1
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # microbatches=2 from the same state: init, the warm-up step
+    t2 = ts.TrainConfig(opt=opt, microbatches=TRAIN_MB)
+    t = time.perf_counter()
+    state = ts.init_state(cfg, t2, train_cli.SEED, device=dev)
+    init_s = sync_s(t)
+    state_gb = (torch.cuda.memory_allocated() - held) / 1e9
+    step = ts.make_train_step(cfg, t2)
+    t = time.perf_counter()
+    state, m = step(state, b0)
+    warm_s = sync_s(t)
+    loss0, gnorm0 = float(m["loss"]), float(m["grad_norm"])
+    mb = _same_first_update(torch, state, p_mb1, m_mb1, TRAIN_LR)
+    del p_mb1, m_mb1
+    checks = {
+        "first_loss_vs_forward": {"loss": loss0, "forward_ce": ce_forward, "rtol": TRAIN_LOSS_RTOL,
+                                  "ok": abs(loss0 - ce_forward) <= TRAIN_LOSS_RTOL * abs(ce_forward)},
+        "microbatches_1_vs_2": {
+            "loss_mb1": loss_mb1, "loss_mb2": loss0, **mb,
+            "tol": {"loss": TRAIN_MB_LOSS_ATOL, "params": TRAIN_MB_PARAM_ATOL, "m_leaf_rel": TRAIN_REL,
+                    "params_within": "2 lr + 1 ulp", "params_beyond_ulp_share": TRAIN_REL},
+            "ok": (abs(loss_mb1 - loss0) < TRAIN_MB_LOSS_ATOL and mb["max_param_diff"] <= TRAIN_MB_PARAM_ATOL
+                   and mb["m_worst_leaf"] <= TRAIN_REL and mb["params_beyond_2lr_ulp"] == 0
+                   and mb["params_beyond_ulp"] <= TRAIN_REL * mb["params"]),
+        },
+    }
+
+    # TRAIN_STEPS timed steps on one repeated batch, then one profiled step
+    rep = train_cli.to_device(data.global_batch(1), dev)
+    step_s, losses, gnorms = [], [], []
+    for _ in range(TRAIN_STEPS):
+        t = time.perf_counter()
+        state, m = step(state, rep)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        step_s.append(sync_s(t))
+    checks["repeated_batch_loss_falls"] = {"losses": losses, "ok": losses[-1] < losses[0]}
+    checks["finite"] = {"ok": bool(np.isfinite([loss0, gnorm0, loss_mb1, *losses, *gnorms]).all())}
+    out = {}
+    t = time.perf_counter()
+    prof = _profile(torch, lambda: out.update(m=step(state, rep)[1]), top=10, cpu_ops=False)
+    prof["seconds_with_processing"] = time.perf_counter() - t
+    med = float(np.median(step_s))
+    flops = train_flops(cfg, B, S)
+    rec = {
+        "phase": "train", "arch": cfg.name, "layers": cfg.n_layers, "params": cfg.param_counts()[0],
+        "optimizer": cfg.optimizer, "lr": TRAIN_LR, "remat": cfg.remat, "batch": B, "seq": S, "microbatches": TRAIN_MB,
+        "init_s": init_s, "state_gb": state_gb, "mb1_step_s": mb1_s, "warmup_step_s": warm_s,
+        "step_ms_median": med * 1e3, "step_ms_max": max(step_s) * 1e3, "step_ms": [x * 1e3 for x in step_s],
+        "tokens_per_s": B * S / med, "flops": flops,
+        "executed_flop_share": flops["total"] / med / BF16_FLOPS_PER_S,
+        "model_flop_share": flops["model"] / med / BF16_FLOPS_PER_S,
+        "loss_first": loss0, "grad_norm_first": gnorm0, "losses": losses, "grad_norms": gnorms,
+        "profiled_step": {**prof, "loss": float(out["m"]["loss"])},
+        "peak_device_gb": (torch.cuda.max_memory_allocated() - held) / 1e9, "peak_mb1_gb": peak_mb1_gb,
+        "held_before_gb": held / 1e9, "checks": checks, "nvidia_smi": _smi_line(),
+        "kernel_launches": dict(build.launches), "seconds": time.perf_counter() - t_phase,
+    }
+    emit(rec)
+    failed = [k for k, v in checks.items() if not v["ok"]]
+    assert not failed, f"train: checks failed: {failed}"
+    _no_kernel_launches(build, "train")
+    del state, out, b0, rep
+    torch.cuda.empty_cache()
+
+
+def _leaf_paths(x, path: str = "") -> list:
+    """The names of ``x``'s leaves in ``tree_flatten``'s order."""
+    if x is None:
+        return []
+    if isinstance(x, dict):
+        return [q for k in sorted(x) for q in _leaf_paths(x[k], f"{path}/{k}")]
+    if hasattr(x, "_fields"):
+        return [q for f, v in zip(x._fields, x) for q in _leaf_paths(v, f"{path}/{f}")]
+    if isinstance(x, (tuple, list)):
+        return [q for i, v in enumerate(x) for q in _leaf_paths(v, f"{path}/{i}")]
+    return [path]
+
+
+def _rel_l2(torch, a: list, b: list) -> float:
+    """The relative L2 error of the tensors ``a`` against ``b``, taken
+    together (the absolute error where ``b`` is all zeros)."""
+    num = sum(float(torch.sum(torch.square(x.double() - y.double()))) for x, y in zip(a, b))
+    den = sum(float(torch.sum(torch.square(y.double()))) for y in b)
+    return (num / den) ** 0.5 if den else num**0.5
+
+
+class _Patch:
+    """Replaces ``module.name`` by ``wrap(original)`` while in use."""
+
+    def __init__(self, module, name: str, wrap):
+        self.module, self.name, self.wrap = module, name, wrap
+
+    def __enter__(self):
+        self.fn = getattr(self.module, self.name)
+        setattr(self.module, self.name, self.wrap(self.fn))
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+def _recorded(calls: list, keep, before: bool = False):
+    """A ``_Patch`` wrap: each call runs as before, and ``keep(result)`` of
+    it is appended to ``calls`` (with ``before``, ``keep(args)`` taken
+    before the call: what an in-place call takes in)."""
+
+    def wrap(fn):
+        def recorded(*args, **kw):
+            kept = keep(args) if before else None
+            out = fn(*args, **kw)
+            calls.append(kept if before else keep(out))
+            return out
+
+        return recorded
+
+    return wrap
+
+
+def _replayed(eids: list):
+    """A ``_Patch`` wrap of ``moe.route``: each routing dispatches the next
+    top-k decisions of ``eids`` (recorded in another run, in call order)
+    over its own router probabilities, instead of its own decisions."""
+    from repro_torch.models import moe
+
+    it = iter(eids)
+
+    def wrap(route):
+        def replayed(p, xf, *, top_k, capacity_factor):
+            probs = route(p, xf, top_k=top_k, capacity_factor=capacity_factor).probs
+            return moe.dispatch(probs, next(it).to(xf.device), capacity_factor)
+
+        return replayed
+
+    return wrap
+
+
+def _train_state_close(torch, card, cpu, lr: float, adamw: bool, hold: bool = True) -> dict:
+    """Card vs CPU train states after one step from the same state: the
+    worst relative L2 error of each moment's leaves (reported: a moment is
+    the optimizer, held on identical inputs, of the gradients, held per
+    leaf) and the parameters beyond one ulp; with ``hold``, the parameter
+    rule of TRAIN_PARITY."""
+    from repro_torch.checkpoint.manager import tree_flatten
+
+    out = {}
+    for k in sorted(card["opt"]):
+        if k == "step":
+            continue
+        names = _leaf_paths(cpu["opt"][k])
+        errs = [_rel_l2(torch, [a.cpu()], [b]) for a, b in zip(tree_flatten(card["opt"][k])[0],
+                                                                tree_flatten(cpu["opt"][k])[0])]
+        i = int(np.argmax(errs))
+        out[k] = {"worst_leaf": errs[i], "worst_leaf_name": names[i]}
+    beyond = total = 0
+    max_diff = 0.0
+    for a, b in zip(tree_flatten(card["params"])[0], tree_flatten(cpu["params"])[0]):
+        want = b.float()
+        d = (a.float().cpu() - want).abs()
+        ulp = torch.from_numpy(np.spacing(np.abs(want.numpy())) * 2.0**16)
+        if adamw and hold:
+            assert bool((d <= 2 * lr + ulp).all()), "a parameter moved more than 2 lr apart"
+        beyond += int((d > ulp).sum())
+        total += want.numel()
+        max_diff = max(max_diff, float(d.max()))
+    if hold:
+        assert beyond <= TRAIN_REL * total, f"{beyond} of {total} parameters beyond one bf16 ulp"
+        assert int(card["opt"]["step"]) == int(cpu["opt"]["step"])
+    return {**out, "params_beyond_ulp": beyond, "params": total, "max_param_diff": max_diff}
+
+
+def _grads_close(torch, names, card, cpu, what: str, tol: float) -> dict:
+    """Each gradient leaf (host copies) card vs CPU to the relative L2
+    error ``tol``; returns the worst leaf."""
+    errs = [_rel_l2(torch, [a], [b]) for a, b in zip(card, cpu)]
+    for n, e in zip(names, errs):
+        assert e <= tol, f"the gradient {n} {what}: relative L2 error {e} (tol {tol})"
+    i = int(np.argmax(errs))
+    return {"worst_leaf": errs[i], "worst_leaf_name": names[i], "tol": tol}
+
+
+def _optimizer_on_the_card(torch, dev, ocfg, taken, want) -> dict:
+    """``optimizer.update`` on the card from what the CPU's update took in
+    (``taken``: host copies of its params, gradients and state) against
+    the CPU's result ``want`` (a train state), to the optimizer tolerance
+    of tests/test_torch_training.py: each moment element within
+    1e-6 of itself plus 1e-6 of its leaf's largest magnitude, every
+    parameter within one bf16 ulp."""
+    from repro_torch.checkpoint.manager import tree_flatten
+    from repro_torch.models.carry import to_device
+    from repro_torch.training import optimizer
+
+    params, grads, state = (to_device(x, dev) for x in taken)
+    got_p, got_s, _ = optimizer.update(ocfg, params, grads, state)
+    worst = 0.0
+    for k in sorted(got_s):
+        for a, b in zip(tree_flatten(got_s[k])[0], tree_flatten(want["opt"][k])[0]):
+            d = (a.cpu().double() - b.double()).abs()
+            lim = MOMENT_RTOL * b.double().abs() + MOMENT_RTOL * float(b.double().abs().max())
+            assert bool((d <= lim).all()), f"optimizer on the card: moment {k} beyond 1e-6"
+            worst = max(worst, float((d / lim.clamp(min=1e-300)).max()))
+    for a, b in zip(tree_flatten(got_p)[0], tree_flatten(want["params"])[0]):
+        ulp = torch.from_numpy(np.spacing(np.abs(b.float().numpy())) * 2.0**16)
+        assert bool(((a.cpu().float() - b.float()).abs() <= ulp).all()), "optimizer on the card: a parameter"
+    return {"moments_worst_share_of_tol": worst}
+
+
+def _compressed_close(torch, card, cpu, card_in, cpu_in, tol: float) -> dict:
+    """The error feedback after one step with gradient compression: the
+    gradients that entered ``compress_tree`` (``card_in``, ``cpu_in``: host
+    copies of its arguments in each step) card vs CPU, each leaf to
+    ``tol``; the card's new error tree == ``compress_tree`` of the card's
+    own arguments run on the CPU, bitwise; and, reported, the int8 levels
+    that differ between the two steps' gradients and the error trees'
+    relative L2 error (a level that differs moves an element of the error
+    by one grid step, and a max-abs scale a last bit apart moves them all)."""
+    from repro_torch.checkpoint.manager import tree_flatten, tree_unflatten
+    from repro_torch.training import compress
+
+    (g_card, e_card), (g_cpu, e_cpu) = card_in, cpu_in
+    names = _leaf_paths(cpu["err"])
+    worst = _grads_close(torch, names, g_card, g_cpu, "entering compression", tol)
+    again = compress.compress_tree(*(tree_unflatten(cpu["err"], x) for x in (g_card, e_card)))[1]
+    for n, a, b in zip(names, tree_flatten(card["err"])[0], tree_flatten(again)[0]):
+        assert torch.equal(a.cpu(), b), f"the card's error feedback {n} != compress_tree of its own gradients"
+    flips = sum(int((compress.quantize(a, e)[0] != compress.quantize(b, f)[0]).sum())
+                for a, e, b, f in zip(g_card, e_card, g_cpu, e_cpu))
+    got, want = [a.cpu() for a in tree_flatten(card["err"])[0]], tree_flatten(cpu["err"])[0]
+    return {"grads": worst, "int8_levels_differing": flips, "elements": sum(b.numel() for b in want),
+            "err_whole_tree": _rel_l2(torch, got, want)}
+
+
+def train_parity(torch, dev) -> None:
+    """Card == CPU on ``make_train_step`` at ``reduced(...)`` sizes with
+    ``n_layers = superblock``: one config of each family (dense, MoE, SSM,
+    the hybrid with Adafactor, llama3-405b's dense Adafactor, the audio
+    encoder with gradient compression, the vision frontend at 2
+    microbatches), TRAIN_PARITY_STEPS steps on the same batches, each step
+    from the same state (drawn on the CPU; before each step the CPU's state
+    is copied to the card), so each is held to the one-step tolerance.
+    ``moe.route``, ``compress.compress_tree`` and ``optimizer.update`` are
+    recorded in each step.  Held: the losses and gradient norms, each
+    gradient leaf the optimizer takes in (the one compression takes in,
+    where it is on), the optimizer on the card from the CPU's inputs on
+    the CPU's result (``_optimizer_on_the_card``), and the parameter rule;
+    each moment is reported.  Where some top-k decisions differ between
+    the card and the CPU, the CPU's step is run again from the same state
+    with the card's decisions (``_replayed``), and the card's gradients
+    and parameters are held to that run: a discrete flip at a router
+    near-tie moves every gradient upstream of it, and the replay shows
+    that nothing else does.  With compression, ``_compressed_close``;
+    ``compress_tree`` itself is held exactly, card == CPU on identical
+    inputs."""
+    import contextlib
+    import dataclasses
+
+    from repro_torch.checkpoint.manager import tree_flatten, tree_unflatten
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import build
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import moe
+    from repro_torch.models.carry import to_device
+    from repro_torch.training import compress, optimizer, train_step as ts
+
+    def host(tree):
+        return tree_unflatten(tree, [x.detach().cpu().clone() for x in tree_flatten(tree)[0]])
+
+    def one_step(step, state, batch, eids=None):
+        """``step`` recording each routing's top-k, compression's arguments
+        and the optimizer's inputs; with ``eids``, routing with those
+        decisions."""
+        routes, comp, opt_in = [], [], []
+        with contextlib.ExitStack() as stack:
+            if eids is not None:
+                stack.enter_context(_Patch(moe, "route", _replayed(eids)))
+            stack.enter_context(_Patch(moe, "route", _recorded(routes, lambda r: r.eids.detach().cpu())))
+            stack.enter_context(_Patch(compress, "compress_tree", _recorded(
+                comp, lambda a: tuple(tree_flatten(host(t))[0] for t in a), before=True)))
+            stack.enter_context(_Patch(optimizer, "update", _recorded(
+                opt_in, lambda a: tuple(host(t) for t in a[1:]), before=True)))
+            state, metrics = step(state, batch)
+        assert len(opt_in) == 1
+        return state, metrics, routes, comp, opt_in[0]
+
+    t_phase = time.perf_counter()
+    build.reset_launches()
+    runs = []
+    for name, kw in TRAIN_PARITY:
+        t = time.perf_counter()
+        cfg = reduced(ARCHS[name])
+        cfg = dataclasses.replace(cfg, n_layers=cfg.superblock)
+        tcfg = ts.TrainConfig(opt=optimizer.OptConfig(kind=cfg.optimizer, lr=TRAIN_PARITY_LR), **kw)
+        cpu = ts.init_state(cfg, tcfg, SEED, device="cpu")
+        shape = ShapeConfig("parity", TRAIN_PARITY_SEQ, TRAIN_PARITY_BATCH, "train")
+        data = SyntheticLM(cfg, shape, DataConfig(seed=SEED))
+        step = ts.make_train_step(cfg, tcfg)
+        steps = []
+        for s in range(TRAIN_PARITY_STEPS):
+            b = data.global_batch(s)
+            before = host(cpu)
+            card, mg, r_card, c_card, o_card = one_step(step, to_device(cpu, dev), train_cli.to_device(b, dev))
+            cpu, mc, r_cpu, c_cpu, o_cpu = one_step(step, cpu, train_cli.to_device(b, "cpu"))
+            rec = {**{k: [float(mg[k]), float(mc[k])] for k in ("loss", "grad_norm")}, "routings": len(r_cpu)}
+            try:
+                assert len(r_card) == len(r_cpu) and len(c_card) == len(c_cpu), "the steps differ in calls"
+                flips = sum(int((a != b).any(dim=-1).sum()) for a, b in zip(r_card, r_cpu))
+                for k in ("loss", "grad_norm"):
+                    g, c = float(mg[k]), float(mc[k])
+                    assert abs(g - c) <= TRAIN_RTOL * abs(c), f"{k} on the card {g} != the CPU's {c}"
+                rec["optimizer"] = _optimizer_on_the_card(torch, dev, tcfg.opt, o_cpu, cpu)
+                want, c_want, o_want = cpu, c_cpu, o_cpu
+                if flips:  # the CPU again, from the same state, with the card's decisions
+                    rec["own_routing"] = _train_state_close(torch, card, cpu, TRAIN_PARITY_LR,
+                                                            cfg.optimizer == "adamw", hold=False)
+                    want, mw, r_rep, c_want, o_want = one_step(step, before, train_cli.to_device(b, "cpu"), r_card)
+                    assert all(torch.equal(a, b) for a, b in zip(r_rep, r_card)), "the replay routed otherwise"
+                    for k in ("loss", "grad_norm"):
+                        g, c = float(mg[k]), float(mw[k])
+                        assert abs(g - c) <= TRAIN_RTOL * abs(c), f"{k} on the card {g} != the replay's {c}"
+                    rec["replayed"] = {k: float(mw[k]) for k in ("loss", "grad_norm")}
+                err = _train_state_close(torch, card, want, TRAIN_PARITY_LR, cfg.optimizer == "adamw")
+                tol = LM_PARITY_REL.get(name, TRAIN_REL)
+                if tcfg.grad_compression:
+                    err["compression"] = _compressed_close(torch, card, want, c_card[0], c_want[0], tol)
+                else:
+                    err["grads"] = _grads_close(torch, _leaf_paths(want["params"]), tree_flatten(o_card[1])[0],
+                                                tree_flatten(o_want[1])[0], "the optimizer takes in", tol)
+            except AssertionError as e:
+                raise AssertionError(f"{name}: step {s}: {e}") from e
+            steps.append({**rec, "tokens_routed_differently": flips, "state": err})
+        if tcfg.grad_compression:  # card == CPU exactly on identical inputs: m as the gradients, the error tree
+            want = compress.compress_tree(cpu["opt"]["m"], cpu["err"])
+            got = compress.compress_tree(to_device(cpu["opt"]["m"], dev), to_device(cpu["err"], dev))
+            for a, b in zip(tree_flatten(got)[0], tree_flatten(want)[0]):
+                if not torch.equal(a.cpu(), b):
+                    raise AssertionError(f"{name}: compress_tree on the card differs from the CPU's")
+        runs.append({"arch": name, "layers": cfg.n_layers, "optimizer": cfg.optimizer, **kw, "steps": steps,
+                     "seconds": time.perf_counter() - t})
+    emit({"phase": "train-parity", "seq": TRAIN_PARITY_SEQ, "batch": TRAIN_PARITY_BATCH, "lr": TRAIN_PARITY_LR,
+          "runs": runs, "kernel_launches": _no_kernel_launches(build, "train-parity"),
+          "seconds": time.perf_counter() - t_phase})
+    torch.cuda.empty_cache()
+
+
+def _same_state_bits(torch, a, b, what: str) -> None:
+    from repro_torch.checkpoint.manager import tree_flatten
+
+    la, lb = tree_flatten(a)[0], tree_flatten(b)[0]
+    assert len(la) == len(lb), what
+    for x, y in zip(la, lb):
+        assert x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y.to(x.device)), what
+
+
+def train_cli_phase(torch, dev) -> None:
+    """``python -m repro_torch.launch.train`` (reduced glm4-9b) with a
+    checkpoint every 2 steps, then the same command again: the launcher's
+    ``run`` in this process writes steps 2 and 4 (restoring step 4 gives
+    its in-memory state bitwise), the command as a user runs it restores
+    step 4 and carries on to 8, and an uninterrupted 8-step run gives the
+    same losses and (the dense config has no atomics: see ``PERF.md``) the
+    same step-8 state bitwise."""
+    import os
+    import tempfile
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.kernels import build
+    from repro_torch.launch import train
+    from repro_torch.training import optimizer, train_step as ts
+
+    t_phase = time.perf_counter()
+    build.reset_launches()
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    cfg = reduced(ARCHS["glm4-9b"])
+    tcfg = ts.TrainConfig(opt=optimizer.OptConfig(kind=cfg.optimizer))
+    with tempfile.TemporaryDirectory() as d:
+        argv = [*TRAIN_CLI_ARGV, "--steps", "4", "--ckpt-dir", d]
+        first, state4 = train.run(train.parse_args(argv))
+        mgr = CheckpointManager(d)
+        assert mgr.all_steps() == [2, 4], mgr.all_steps()
+        _same_state_bits(torch, state4, train.restore(mgr, 4, cfg, tcfg, dev), "restored step 4")
+        t = time.perf_counter()
+        p = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", *argv], cwd=root, env=env,
+                           capture_output=True, text=True, timeout=300)
+        cli_s = time.perf_counter() - t
+        if p.returncode != 0 or "[train] restored step 4" not in p.stdout:
+            raise AssertionError(f"train: exit {p.returncode}\n{p.stdout[-3000:]}{p.stderr[-3000:]}")
+        printed = [float(ln.split()[4]) for ln in p.stdout.splitlines() if ln.startswith("[train] step ")]
+        whole, state8 = train.run(train.parse_args([*TRAIN_CLI_ARGV, "--steps", "8"]))
+        assert mgr.all_steps()[-1] == 8
+        resumed8 = train.restore(mgr, 8, cfg, tcfg, dev)
+        _same_state_bits(torch, state8, resumed8, "the resumed run's step-8 state")
+    assert first == whole[:4], (first, whole)
+    assert printed == [float(f"{x:.4f}") for x in whole[4:]], (printed, whole)
+    emit({"phase": "train-cli", "argv": [*TRAIN_CLI_ARGV, "--steps", "4", "--ckpt-dir", "<tmp>"], "exit": p.returncode,
+          "out": p.stdout.splitlines(), "cli_seconds": cli_s, "losses_first": first, "losses_whole": whole,
+          "resumed_printed": printed, "restored_equal": True, "resumed_state_bitwise": True,
+          "kernel_launches": _no_kernel_launches(build, "train-cli"), "seconds": time.perf_counter() - t_phase})
+
+
 # ----------------------------------------------------------- paged phase
 
 
@@ -2435,17 +3037,22 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     W = WAVE
     n_upd = max(1, round(W * 5 / 95))
+    setup_s = {}  # where phase 1's set-up time goes, step by step
     t0 = time.perf_counter()
-    keys = datasets.sparse(N_KEYS, seed=SEED)
+    keys = draw_sparse_keys(torch, dev, N_KEYS, SEED)
     vals = keys ^ np.uint64(0x5DEECE66D)
-    gen_s = time.perf_counter() - t0
+    setup_s["keys"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     st = DPAStore(keys, vals, device=dev)
     torch.cuda.synchronize()
-    store_build_s = time.perf_counter() - t0
+    setup_s["store_build"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     oracle = Oracle(keys, vals)
+    setup_s["oracle"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     n_draw = W * (ROUNDS + 11) + n_upd * (ROUNDS + 1)
     zipf = keys[datasets.zipf_indices(keys.size, n_draw, alpha=ZIPF, seed=SEED)]
+    setup_s["zipf_draw"] = time.perf_counter() - t0
     zpos = 0
 
     def draw(n):
@@ -2554,7 +3161,8 @@ def main() -> int:
         "phase": "main", "keys": N_KEYS, "wave": W, "depth": st.depth,
         "inner_nodes_per_level": inner_nodes_per_level(st.image),
         "leaves_pool": int(st.tree.leaf_count.shape[0]), "slots_pool": int(st.tree.hbm_keys.shape[0]),
-        "gen_s": gen_s, "store_build_s": store_build_s,
+        "gen_s": setup_s["keys"], "store_build_s": setup_s["store_build"], "setup_s": setup_s,
+        "since_start_s": time.perf_counter() - t_start,
         "get_mops": get_n / get_s / 1e6, "range_mops": range_n / range_s / 1e6,
         "get_requests": int(get_n), "range_requests": int(range_n), "range100_rounds": r100.rounds,
         "flush_s": flush_s, "launches": launches,
@@ -2632,6 +3240,9 @@ def main() -> int:
     paged_phase(torch, dev, kernels)
     lm_phase(torch, dev)
     lm_parity(torch, dev)
+    train_phase(torch, dev)
+    train_parity(torch, dev)
+    train_cli_phase(torch, dev)
 
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)

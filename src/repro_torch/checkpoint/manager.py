@@ -60,45 +60,50 @@ def _is_namedtuple(x) -> bool:
     return isinstance(x, tuple) and hasattr(x, "_fields")
 
 
+# The walks are module-level functions, not closures that call themselves: a
+# self-referencing closure is a reference cycle that would keep every leaf
+# it saw (a whole train state) alive until the cyclic collector runs.
+
+
+def _walk(x, leaves: List[Any]) -> str:
+    if x is None:
+        return "None"
+    if isinstance(x, dict):
+        return "{" + ", ".join(f"{k!r}: {_walk(x[k], leaves)}" for k in sorted(x)) + "}"
+    if _is_namedtuple(x):
+        return f"CustomNode(namedtuple[{type(x).__name__}], [" + ", ".join(_walk(v, leaves) for v in x) + "])"
+    if isinstance(x, tuple):
+        return "(" + ", ".join(_walk(v, leaves) for v in x) + ("," if len(x) == 1 else "") + ")"
+    if isinstance(x, list):
+        return "[" + ", ".join(_walk(v, leaves) for v in x) + "]"
+    leaves.append(x)
+    return "*"
+
+
 def tree_flatten(state: Any) -> Tuple[List[Any], str]:
     """Leaves of ``state`` in the reference's flatten order, and a
     description of its structure (META's ``treedef``)."""
     leaves: List[Any] = []
+    return leaves, f"PyTreeDef({_walk(state, leaves)})"
 
-    def walk(x) -> str:
-        if x is None:
-            return "None"
-        if isinstance(x, dict):
-            return "{" + ", ".join(f"{k!r}: {walk(x[k])}" for k in sorted(x)) + "}"
-        if _is_namedtuple(x):
-            return f"CustomNode(namedtuple[{type(x).__name__}], [" + ", ".join(walk(v) for v in x) + "])"
-        if isinstance(x, tuple):
-            return "(" + ", ".join(walk(v) for v in x) + ("," if len(x) == 1 else "") + ")"
-        if isinstance(x, list):
-            return "[" + ", ".join(walk(v) for v in x) + "]"
-        leaves.append(x)
-        return "*"
 
-    return leaves, f"PyTreeDef({walk(state)})"
+def _build(x, it):
+    if x is None:
+        return None
+    if isinstance(x, dict):
+        out = {k: _build(x[k], it) for k in sorted(x)}
+        return {k: out[k] for k in x}  # the caller's key order
+    if _is_namedtuple(x):
+        return type(x)(*(_build(v, it) for v in x))
+    if isinstance(x, (tuple, list)):
+        return type(x)(_build(v, it) for v in x)
+    return next(it)
 
 
 def tree_unflatten(like: Any, leaves: List[Any]) -> Any:
     """Rebuild the structure of ``like`` with ``leaves`` in flatten order."""
     it = iter(leaves)
-
-    def build(x):
-        if x is None:
-            return None
-        if isinstance(x, dict):
-            out = {k: build(x[k]) for k in sorted(x)}
-            return {k: out[k] for k in x}  # the caller's key order
-        if _is_namedtuple(x):
-            return type(x)(*(build(v) for v in x))
-        if isinstance(x, (tuple, list)):
-            return type(x)(build(v) for v in x)
-        return next(it)
-
-    out = build(like)
+    out = _build(like, it)
     assert next(it, None) is None, "more leaves than the structure holds"
     return out
 

@@ -5,7 +5,10 @@ The JAX package's parameters and caches are trees of dicts and lists
 cache as ``{"slots": [...]}``); ``jax.tree.map(np.asarray, tree)`` turns one
 into numpy arrays.  ``from_numpy`` takes such a tree and returns the same
 tree of tensors on a device, so both packages compute on the same weights;
-``to_numpy`` gives a port tree back as numpy, bf16 as f32 (exact).
+``to_numpy`` gives a port tree back as numpy, bf16 as f32 (exact).  A
+train state carries the same way, both ways: ``params``, ``opt`` (the int32
+``step`` scalar and ``m``/``v`` or ``vr``/``vc``) and ``err``; the JAX side
+casts each numpy leaf back to its own leaf's dtype.
 
 A bf16 numpy array (``ml_dtypes.bfloat16``, which ``torch.from_numpy``
 refuses) is read through its bits: ``uint16`` -> ``int16`` ->
@@ -20,10 +23,10 @@ import torch
 
 
 def _tensor(a, device) -> torch.Tensor:
-    a = np.ascontiguousarray(np.asarray(a))
+    a = np.array(a, order="C")  # a C-contiguous copy; a 0-d array stays 0-d
     if a.dtype.name == "bfloat16":
-        return torch.from_numpy(a.view(np.uint16).view(np.int16).copy()).view(torch.bfloat16).to(device)
-    return torch.from_numpy(a.copy()).to(device)
+        return torch.from_numpy(a.view(np.uint16).view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
 
 
 def from_numpy(tree, device):

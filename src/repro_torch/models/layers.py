@@ -22,8 +22,7 @@ bf16 operands (projections, MLPs) stay bf16 matmuls with f32 accumulation
 on both sides.
 
 The reference's ``PERF_FLAGS`` / ``UNROLL_ATTN`` globals and sharding
-constraints are GSPMD and dry-run hints and do not come over;
-``cross_entropy`` waits for the training slice.
+constraints are GSPMD and dry-run hints and do not come over.
 """
 
 from __future__ import annotations
@@ -285,7 +284,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
 
 
 # ---------------------------------------------------------------------------
-# MLP
+# MLP + loss
 # ---------------------------------------------------------------------------
 
 
@@ -294,3 +293,17 @@ def swiglu(x, w_gate, w_up, w_down):
     u = torch.einsum("bsd,df->bsf", x, w_up)
     h = F.silu(g.float()).to(x.dtype) * u
     return torch.einsum("bsf,fd->bsd", h, w_down)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, mask=None) -> torch.Tensor:
+    """Token-mean CE in f32: ``logsumexp - gold`` per token. logits (B,S,V),
+    labels (B,S) int; ``mask`` (B,S) weights the tokens (the mean over its
+    sum, at least 1)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

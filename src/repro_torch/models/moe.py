@@ -69,13 +69,19 @@ def init(gen: torch.Generator, d_model: int, d_ff: int, n_experts: int, dtype, d
 def route(p: MoEParams, xf: torch.Tensor, *, top_k: int, capacity_factor: float) -> Routing:
     """Router, top-k, aux loss and the capacity-clipped dispatch of the
     tokens ``xf`` (T, D)."""
-    T = xf.shape[0]
-    E = p.router.shape[1]
     logits = xf.float() @ p.router
     probs = torch.softmax(logits, dim=-1)
     # top-k, ties to the lower index (jax.lax.top_k)
-    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
-    gate_vals, eids = vals[:, :top_k], idx[:, :top_k]
+    eids = torch.sort(probs, dim=-1, descending=True, stable=True).indices[:, :top_k]
+    return dispatch(probs, eids, capacity_factor)
+
+
+def dispatch(probs: torch.Tensor, eids: torch.Tensor, capacity_factor: float) -> Routing:
+    """The gates, aux loss and capacity-clipped dispatch of the top-k
+    decisions ``eids`` (T, k) over the router's ``probs`` (T, E)."""
+    T, E = probs.shape
+    top_k = eids.shape[1]
+    gate_vals = torch.gather(probs, 1, eids)
     gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
 
     # aux loss (Switch-style): E * sum_e fraction_tokens_e * mean_prob_e
@@ -85,12 +91,12 @@ def route(p: MoEParams, xf: torch.Tensor, *, top_k: int, capacity_factor: float)
     # ---- sorted dispatch ---------------------------------------------------
     TK = T * top_k
     flat_eid = eids.reshape(TK)
-    flat_tok = torch.arange(T, device=xf.device).repeat_interleave(top_k)
+    flat_tok = torch.arange(T, device=probs.device).repeat_interleave(top_k)
     order = torch.sort(flat_eid, stable=True).indices
     eid_s = flat_eid[order]
     # rank within expert: position - index of the expert group's first entry
-    pos = torch.arange(TK, device=xf.device)
-    is_first = torch.ones(TK, dtype=torch.bool, device=xf.device)
+    pos = torch.arange(TK, device=probs.device)
+    is_first = torch.ones(TK, dtype=torch.bool, device=probs.device)
     is_first[1:] = eid_s[1:] != eid_s[:-1]
     group_start = torch.cummax(torch.where(is_first, pos, 0), dim=0).values
     rank = pos - group_start

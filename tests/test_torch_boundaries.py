@@ -46,7 +46,8 @@ def test_importing_the_port_loads_no_jax():
         "repro_torch.distributed.snapshot, repro_torch.distributed.elastic, repro_torch.checkpoint.manager, "
         "repro_torch.launch.mesh, repro_torch.launch.kv_dryrun, repro_torch.launch.local_ranks, repro_torch.configs, "
         "repro_torch.models.layers, repro_torch.models.moe, repro_torch.models.mamba, repro_torch.models.lm, "
-        "repro_torch.models.carry, repro_torch.device, runpy; runpy.run_path('examples/torch_kv_serve.py'); "
+        "repro_torch.models.carry, repro_torch.device, repro_torch.data.pipeline, repro_torch.training.optimizer, "
+        "repro_torch.training.compress, repro_torch.training.train_step, repro_torch.launch.train, runpy; runpy.run_path('examples/torch_kv_serve.py'); "
         "assert 'jax' not in sys.modules and 'repro' not in sys.modules, sorted(sys.modules)"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -138,6 +139,30 @@ def test_lm_defaults_to_the_card():
         Engine(cfg, params)
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--arch", "glm4-9b", "--reduced", "--steps", "1"])
+
+
+def test_training_defaults_to_the_card(tmp_path):
+    """``init_state`` (the train step's state), a restore and the training
+    launcher without a device mean the card: without CUDA they raise."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.launch import train
+    from repro_torch.training import train_step as ts
+
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: the default device is valid here")
+    cfg = reduced(ARCHS["glm4-9b"])
+    tcfg = ts.TrainConfig()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ts.init_state(cfg, tcfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ts.init_state(cfg, tcfg, device="cuda")
+    mgr = CheckpointManager(tmp_path)
+    mgr.save(1, ts.init_state(cfg, tcfg, device="cpu"), blocking=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.restore(mgr, 1, cfg, tcfg, None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--reduced", "--batch", "2", "--seq", "16", "--steps", "1"])
 
 
 @pytest.fixture
@@ -678,3 +703,47 @@ def test_engine_on_the_card_equals_the_cpu(cuda_device):
         else:
             torch.testing.assert_close(got, want, rtol=2**-7, atol=2**-7 * float(want.abs().max()), msg=name)
         np.testing.assert_array_equal(card.generate(toks, 8), cpu.generate(toks, 8), err_msg=name)
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_card_equals_the_cpu(cuda_device):
+    """One ``make_train_step`` step (AdamW, 2 microbatches, block remat) on
+    the card == on the CPU from the same state (drawn on the CPU, copied
+    over) on the same batch: the loss and gradient norm to a relative 2^-7,
+    each moment leaf to a relative L2 error of 2^-5, every parameter within
+    ``2 * lr`` plus one bf16 ulp and at most a 2^-5 share beyond one ulp
+    (the tolerances of ``tests/test_torch_training.py``: cuBLAS and the CPU
+    sum the products in other orders)."""
+    from repro_torch.checkpoint.manager import tree_flatten
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.carry import to_device
+    from repro_torch.training import optimizer
+    from repro_torch.training import train_step as ts
+
+    lr = 1e-3
+    for name in ("glm4-9b", "mixtral-8x7b"):
+        cfg = reduced(ARCHS[name])
+        tcfg = ts.TrainConfig(opt=optimizer.OptConfig(lr=lr), microbatches=2)
+        cpu = ts.init_state(cfg, tcfg, 0, device="cpu")
+        card = to_device(cpu, cuda_device)
+        batch = SyntheticLM(cfg, ShapeConfig("t", 64, 4, "train"), DataConfig(seed=3)).global_batch(0)
+        tb = {k: (None if v is None else torch.from_numpy(v)) for k, v in batch.items()}
+        step = ts.make_train_step(cfg, tcfg)
+        card, mg = step(card, {k: (None if v is None else v.to(cuda_device)) for k, v in tb.items()})
+        cpu, mc = step(cpu, tb)
+        for k in ("loss", "grad_norm"):
+            assert abs(float(mg[k]) - float(mc[k])) <= 2**-7 * abs(float(mc[k])), (name, k)
+        for k in ("m", "v"):
+            for a, b in zip(tree_flatten(card["opt"][k])[0], tree_flatten(cpu["opt"][k])[0]):
+                assert float(torch.linalg.vector_norm(a.cpu() - b) / torch.linalg.vector_norm(b)) <= 2**-5, (name, k)
+        beyond = total = 0
+        for a, b in zip(tree_flatten(card["params"])[0], tree_flatten(cpu["params"])[0]):
+            want = b.float().numpy()
+            d = np.abs(a.float().cpu().numpy() - want)
+            ulp = np.spacing(np.abs(want)) * 2.0**16
+            assert (d <= 2 * lr + ulp).all(), name
+            beyond += int((d > ulp).sum())
+            total += want.size
+        assert beyond <= 2**-5 * total, (name, beyond, total)
