@@ -46,13 +46,19 @@ Phases, one JSON line each (any mismatch raises and exits non-zero):
                phase): ``launch/serve.py``'s ``serve_kv`` loop (per 4 waves
                2 GET waves of 65536 zipf keys, an UPDATE of the first 16384
                of a draw, repeats included, a RANGE of 64 starts) through
-               ``PipelinedStore`` at queue depth 1, then 2, 32 waves each;
+               ``PipelinedStore`` at queue depth 1, then 2, 12 waves each;
                every answer against the oracle, B1-B3 launched in each run;
                requests/s, waves by kind, serial-path write waves, flush
                cycles, the ledger's issue and drain us per wave and overlap,
                and ``perfmodel.pipelined_wave_mops``; then 8 waves at depth
                2 under the pipeline's ``torch.profiler`` trace (wall,
                device ms and busy share, launches, the spans' CPU time).
+   btree    — the B+-tree baseline (Fig 12's comparison) on phase 3's 50M
+               keys and values, before the sharded phase: ``btree.build``
+               (seconds, depth, device bytes), 6 GET waves of 65536 zipf-0.99
+               keys and one of 4096 absent keys, every answer against the
+               oracle; its GET MOPS beside phase 3's learned index's and one
+               wave's device ms.  Plain torch: B1-B4 must not launch.
    tenants  — the 4-tenant deployment of ``launch/serve.py`` (``--tenants 4
                --tenant-rate 0:2048 --tenant-weights 0:0.5 --max-delay 4``,
                1024-row waves) on phase 3's keys re-encoded into tenant
@@ -149,12 +155,22 @@ Phases, one JSON line each (any mismatch raises and exits non-zero):
                model at a time; init s, prefill ms, decode ms a step
                (median, p99), tokens/s, peak memory and one profiled decode
                step each.  glm4-9b's 32 decode logits are held against a
-               teacher-forced ``forward`` over the same tokens.
+               teacher-forced ``forward`` over the same tokens.  Before the
+               first model, what the KV phases left allocated must be under
+               0.5 GB (a ``held`` line lists the live CUDA tensors and who
+               refers to them before ``paged``, and again on a failure).
+   lm-gather — mixtral again with ``moe_decode_gather``: every decode
+               step's MoE layers gather the routed experts' weights; decode
+               ms beside the dense path's, the tokens whose gathered MoE
+               output is a zero row (a drop; must be 0) beside the dense
+               path's dropped entries at decode, each step's first-layer MoE
+               output against a plain f32 per-token SwiGLU.
    lm-parity — card == CPU on the same weights (drawn on the CPU): glm4-9b
                at full width cut to 2 layers, then every causal family at
                ``reduced(...)`` with ``n_layers = superblock`` (pixtral
                through ``embeds``): prefill logits and caches, 8 decode
-               steps' logits, each greedy token equal (or a stated near-tie).
+               steps' logits, each greedy token equal (or a stated near-tie);
+               then reduced mixtral with ``moe_decode_gather``.
 7. train    — the training path at full width (no kernel of B1-B4 on it):
                glm4-9b cut to 8 of 40 layers (2.87 B parameters), AdamW,
                block remat, 2 x 4096 tokens a step in 2 microbatches, data
@@ -165,14 +181,24 @@ Phases, one JSON line each (any mismatch raises and exits non-zero):
                loss falls), one profiled step: init s, step ms, tokens/s,
                peak memory, model-FLOP share, the device's busy share and
                top ops.
+   train-paired — the same model, state and batches with
+               ``set_perf_flags(paired_causal=True)`` (36 of the 64 block
+               pairs of a 4096-token sequence): the first step's loss within
+               1e-3 of the masked one's and its update to the microbatch
+               tolerances, then the same timed and profiled steps.
    train-parity — card == CPU on ``make_train_step`` for one reduced
                config of each family (AdamW, Adafactor, compression, 2
-               microbatches), 2 steps, each from the same state.
+               microbatches; glm4 with ``paired_causal`` at 1024 tokens,
+               the paired branch counted on both), 2 steps, each from the
+               same state.
    train-cli — ``python -m repro_torch.launch.train --reduced`` with a
                checkpoint every 2 steps, run, restored (bitwise) and run
                again as a user runs it; its losses and step-8 state equal an
                uninterrupted run's.  B1-B4 must not launch in any of the
                three.
+8. examples — ``examples/torch_quickstart.py`` (B1-B3 must launch),
+               ``torch_paged_decode.py`` (B4 must launch) and
+               ``torch_train_lm.py --steps 4`` on the card through ``runpy``.
 
 Then the kernels' summary line and, last, ``{"ok": true, "device": ...}``.
 Exits non-zero without printing a result when CUDA is absent or when the
@@ -213,6 +239,10 @@ GATHER_RANDOM = 16384  # B4's largest shape: 512 MiB read and 512 MiB written pe
 L2_FLUSH_BYTES = 256 * 2**20  # written before each cold-L2 call: more than the 50 MB L2
 ATTEND_TOL = 1e-4  # paged vs dense on the same bf16 K/V: f32 summation order only
 # the versioned phase: launch/serve.py:29-33 (--retain-epochs 64 --ttl 4)
+# the B+-tree baseline on phase 3's keys: GET waves of WAVE zipf keys, then
+# one wave of absent keys
+BTREE_WAVES, BTREE_ABSENT = 6, 4096
+
 VERSIONED_RETAIN = 64
 VERSIONED_TTL = 4
 VERSIONED_GROWTH = 4.0  # TreeConfig()'s pool headroom, enough for the phase
@@ -222,7 +252,7 @@ PARITY_RETAIN, PARITY_GROWTH = 40, 64.0
 NO_DEADLINE = np.iinfo(np.int64).max  # the oracle's deadline of a key without a TTL
 # the front end: launch/serve.py's serve_kv loop at the service config's
 # scale (dpastore_service.py: 50M keys, 65536-request waves), per depth
-FRONTEND_WAVES = 16  # waves per queue depth: 2 GET, 1 UPDATE, 1 RANGE in every 4 (64 before the sharded phases, 32 before the training phases)
+FRONTEND_WAVES = 12  # waves per queue depth: 2 GET, 1 UPDATE, 1 RANGE in every 4 (64 before the sharded phases, 32 before the training phases, 16 before the perf-flag phases)
 FRONTEND_PROFILED = 8  # waves at depth 2 under torch.profiler
 FRONTEND_RANGE = 64  # RANGE starts per wave (serve.py: q[:64], limit 10)
 # frontend-parity: twin 1M-key stores over serve_kv's script with submit lag
@@ -265,6 +295,12 @@ KV_DRYRUN_BYTES = 5 * 16 * (65536 // 16) * 4
 # 1024-token prompts (2 x 2 attention blocks of 512), 32 greedy steps;
 # (arch, layers kept or None for all)
 LM_BATCH, LM_PROMPT, LM_STEPS = 4, 1024, 32
+# moe_decode_gather's first-layer MoE output against a plain f32 per-token
+# SwiGLU of the routed experts: relative L2 error (bf16 g, u, h, y: ~2^-8)
+LM_GATHER_REL = 2**-6
+# what the KV phases may leave allocated when the LM and training phases
+# start (run AQ left 4.66 GB: phase 2's kernel cases held the 50M-key store)
+HELD_LIMIT_GB = 0.5
 LM_MODELS = (("glm4-9b", None), ("mixtral-8x7b", 4), ("mamba2-1.3b", None))
 # glm4-9b's decode logits against a teacher-forced forward over the same
 # tokens (the reference's own oracle): bf16 activations through 40 layers,
@@ -301,6 +337,10 @@ BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 peak (data sheet)
 # a TRAIN_REL share beyond one ulp; the first step's loss against
 # cross_entropy of a no_grad forward
 TRAIN_MB_LOSS_ATOL, TRAIN_MB_PARAM_ATOL, TRAIN_LOSS_RTOL = 5e-2, 2e-2, 2**-7
+# the paired causal schedule's first step against the masked one's from the
+# same state: the loss within tests/test_perf_variants.py's 1e-3, the update
+# to the microbatch tolerances above
+PAIRED_LOSS_ATOL = 1e-3
 # train-parity: card == CPU at reduced(...) sizes with n_layers = superblock
 # (as lm-parity), 2 steps, each step from the same state on both (the CPU's,
 # carried to the card before it), to tests/test_torch_training.py's
@@ -321,9 +361,12 @@ TRAIN_MB_LOSS_ATOL, TRAIN_MB_PARAM_ATOL, TRAIN_LOSS_RTOL = 5e-2, 2e-2, 2**-7
 # gradients that enter it are held per leaf to 2^-5, and the card's error
 # feedback must equal compress_tree of the card's own gradients on the CPU
 # bitwise.  Adafactor: jamba and, dense, llama3-405b
+# and the paired causal schedule on glm4 at 1024 tokens (two 512-token
+# blocks, the shortest sequence the model's attention takes it on), batch 1
 TRAIN_PARITY = (("glm4-9b", {}), ("mixtral-8x7b", {}), ("mamba2-1.3b", {}), ("jamba-1.5-large-398b", {}),
                 ("llama3-405b", {}), ("hubert-xlarge", {"grad_compression": True}),
-                ("pixtral-12b", {"microbatches": 2}))
+                ("pixtral-12b", {"microbatches": 2}),
+                ("glm4-9b", {"perf_flags": {"paired_causal": True}, "seq": 1024, "batch": 1}))
 TRAIN_PARITY_SEQ, TRAIN_PARITY_BATCH, TRAIN_PARITY_STEPS, TRAIN_PARITY_LR = 64, 4, 2, 1e-3
 TRAIN_RTOL, TRAIN_REL, MOMENT_RTOL = 2**-7, 2**-5, 1e-6
 # train-cli: python -m repro_torch.launch.train --reduced, train_4k cut to 8
@@ -652,6 +695,42 @@ def kernel_cases(torch, st, q, L: int, ML: int):
             lambda got: walk_bytes_ops(torch, st.tree, got[5], L, ML),
         ),
     }
+
+
+def kernel_phase(torch, dev, st, q2) -> dict:
+    """Phase 2: kernels B1-B3 against their plain versions on the store's
+    state for the request keys ``q2``; returns the kernels' rows of the
+    summary line.  A function of its own, so that the kernel cases'
+    closures, which hold the store, die with it."""
+    kernels = {}
+    W = q2.size
+    L, ML = 10 + 4 * st.cfg.ib_cap, 4
+    one = torch.zeros(1, device=dev)
+    floor = {"launch_floor_ms": time_ms(torch, lambda: one.fill_(0)),
+             "launch_floor_cold_ms": time_ms(torch, lambda: one.fill_(0), cold=True)}
+    for name, (kern, plain, source, replaces, cost) in kernel_cases(torch, st, q2, L, ML).items():
+        got, want = kern(), plain()
+        err = max_abs_err(torch, name, got, want)
+        ms, plain_ms = time_ms(torch, kern), time_ms(torch, plain)
+        nbytes, nops = cost(got)
+        bound_ms, bound_by = bound(nbytes, nops)
+        kernels[name] = {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        }
+        extra = {}
+        if name == "get":  # B1: also from a cold L2, and the launch plan the wave got
+            kernels[name]["cold_ms"] = extra["cold_ms"] = time_ms(torch, kern, cold=True)
+            extra["plan"] = get_plan(torch, st, W)
+        elif name.startswith("cache_probe"):  # B2: the same, the wave's shares and the launch floor
+            extra = {"cold_ms": time_ms(torch, kern, cold=True), **probe_wave(torch, st, q2, int(name[-1])),
+                     "hit": float(got[0].float().mean()), **floor}
+            kernels[name].update(extra)
+        emit({"phase": "kernel", "kernel": name, "equal": True, "ms": ms, "plain_ms": plain_ms,
+              "bytes": nbytes, "ops": nops, "bound_ms": bound_ms, "bound_by": bound_by, **extra,
+              "shapes": {"requests": W, "depth": st.depth, "L": L if name == "range_walk" else None}})
+    return kernels
 
 
 def max_abs_err(torch, name: str, got, want) -> float:
@@ -1247,6 +1326,75 @@ def frontend_parity(torch, dev) -> None:
           "queue_depth": 2, "identical": True, "flush_cycles": serial.stats.flush_cycles,
           "pipeline": s, "seconds": time.perf_counter() - t_phase})
     del serial, piped, pipe
+
+
+def btree_phase(torch, dev, keys, vals, learned_get_mops: float) -> None:
+    """The B+-tree baseline (Fig 12's comparison) over phase 3's 50M keys
+    and their bulk-loaded values: ``btree.build`` (seconds, depth, device
+    bytes), then BTREE_WAVES GET waves of WAVE zipf-0.99 keys drawn as
+    phase 3 draws them and one wave of BTREE_ABSENT absent keys, every
+    answer against the sorted arrays (the oracle).  GET MOPS as phase 3
+    counts the learned index's: host wall seconds of the whole call (limb
+    split, upload, ``get_batch``, download); the device time of one wave's
+    ``get_batch`` (CUDA events).  Plain torch, as the reference computes it:
+    B1-B4 must not launch."""
+    from repro_torch.core import btree, datasets
+    from repro_torch.core.keys import join_u64, split_u64
+    from repro_torch.kernels import build
+
+    t_phase = time.perf_counter()
+    build.reset_launches()
+    t = time.perf_counter()
+    bt = btree.build(keys, vals, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    pools = (bt.node_keys, bt.node_child, bt.child_base, bt.leaf_keys, bt.leaf_vals)
+
+    def limbs(q):
+        h = split_u64(q).view(np.int32)
+        return (torch.from_numpy(np.ascontiguousarray(h[:, 0])).to(dev),
+                torch.from_numpy(np.ascontiguousarray(h[:, 1])).to(dev))
+
+    def get(q):
+        vh, vl, found = btree.get_batch(bt, *limbs(q))
+        return join_u64(np.stack([vh.cpu().numpy(), vl.cpu().numpy()], axis=-1)), found.cpu().numpy()
+
+    zipf = keys[datasets.zipf_indices(keys.size, BTREE_WAVES * WAVE, alpha=ZIPF, seed=SEED)]
+    rng = np.random.default_rng(SEED + 5)
+    absent = rng.integers(0, 2**64 - 1, 2 * BTREE_ABSENT, dtype=np.uint64)
+    pos = np.minimum(np.searchsorted(keys, absent), keys.size - 1)
+    absent = absent[keys[pos] != absent][:BTREE_ABSENT]
+    assert absent.size == BTREE_ABSENT
+    waves = [zipf[i * WAVE : (i + 1) * WAVE] for i in range(BTREE_WAVES)] + [absent]
+    get(waves[0])  # warm-up
+    get_s = get_n = 0.0
+    for q in waves:
+        t = time.perf_counter()
+        got, found = get(q)
+        get_s += time.perf_counter() - t
+        get_n += q.size
+        pos = np.minimum(np.searchsorted(keys, q), keys.size - 1)
+        want_found = keys[pos] == q
+        assert np.array_equal(found, want_found), "B+-tree GET: found flags differ from the oracle"
+        assert np.array_equal(got[found], vals[pos][found]), "B+-tree GET: values differ from the oracle"
+    assert not found.any()  # the last wave: the absent keys
+    khi, klo = limbs(waves[0])
+    launches = dict(build.launches)
+    rec = {
+        "phase": "btree", "keys": int(keys.size), "depth": bt.depth, "n_leaves": bt.n_leaves,
+        "inner_nodes": int(bt.node_keys.shape[0]), "level_base": list(bt.level_base), "build_s": build_s,
+        "device_bytes": sum(x.numel() * x.element_size() for x in pools),
+        "leaf_bytes": sum(x.numel() * x.element_size() for x in pools[3:]),
+        "waves": len(waves), "wave": WAVE, "absent": BTREE_ABSENT, "get_requests": int(get_n),
+        "get_mops": get_n / get_s / 1e6, "learned_get_mops": learned_get_mops,
+        "wave_device_ms": time_ms(torch, lambda: btree.get_batch(bt, khi, klo), reps=10),
+        "oracle": "all GET answers equal", "kernel_launches": launches,
+        "nvidia_smi": _smi_line(), "seconds": time.perf_counter() - t_phase,
+    }
+    emit(rec)
+    assert not any(launches.values()), f"btree: the B+-tree GET launched {launches}"
+    del bt, pools, khi, klo
+    torch.cuda.empty_cache()
 
 
 def tenants_phase(torch, dev, keys) -> None:
@@ -2031,6 +2179,9 @@ def lm_phase(torch, dev) -> None:
         cfg = ARCHS[arch] if layers is None else dataclasses.replace(ARCHS[arch], n_layers=layers)
         torch.cuda.empty_cache()
         held = torch.cuda.memory_allocated()  # what earlier phases still hold
+        if held > HELD_LIMIT_GB * 1e9:
+            held_tensors(torch, f"before lm {arch}")
+            raise AssertionError(f"{held / 1e9:.2f} GB still allocated before the lm model {arch}")
         torch.cuda.reset_peak_memory_stats()
         t = time.perf_counter()
         params = lm.init(cfg, SEED, device=dev)
@@ -2092,8 +2243,139 @@ def lm_phase(torch, dev) -> None:
         rec["kernel_launches"] = dict(build.launches)
         emit(rec)
         assert not any(rec["kernel_launches"].values()), f"{arch}: the LM path launched {rec['kernel_launches']}"
-        del params, eng, cache, last, cur
+        del cache, last, cur
+        if cfg.family == "moe":
+            lm_gather(torch, cfg, params, eng, toks, rec)
+        del params, eng
         torch.cuda.empty_cache()
+
+
+def lm_gather(torch, cfg, params, eng, toks, dense: dict) -> None:
+    """The MoE model of ``lm`` again with ``moe_decode_gather`` (batch 4,
+    top-2 of 8 experts: T k = 8 <= E, so every decode step's MoE layers
+    gather the routed experts' weights and drop nothing): a warm-up and a
+    timed ``Engine.generate`` (greedy, finite), decode ms beside the dense
+    path's (``dense``, the record of the run before).  Then, untimed, the
+    same generate again with each decode step's first-layer MoE output held
+    against a plain f32 per-token SwiGLU of the routed experts on the same
+    hidden state (relative L2 error <= LM_GATHER_REL; the gather path
+    rounds g, u, h and y to bf16), the gather calls counted, the tokens
+    whose gathered output is a zero row (a dropped token's) counted in
+    every layer, and the dense path's generate with the entries its
+    capacity-1 dispatch drops at decode counted.  The tokens of the
+    untimed run equal the timed run's.  B1-B4 must not launch; the flags
+    are cleared after."""
+    from repro_torch.kernels import build
+    from repro_torch.models import layers, moe
+
+    t_phase = time.perf_counter()
+    build.reset_launches()
+    B, N = toks.shape[0], LM_STEPS
+    E, k = cfg.n_experts, cfg.experts_per_token
+    assert B * k <= E, "the gather branch needs T k <= E at decode"
+    errs, gathers, routes = [], [], []
+
+    def held_layer0(fn):
+        def checked(p, xf, top_k):
+            out, aux = fn(p, xf, top_k)
+            gathers.append(int((out == 0).all(dim=-1).sum()))  # zero rows: dropped tokens
+            if len(gathers) % cfg.n_layers == 1:  # the first layer of a decode step
+                probs, eids = moe._router(p, xf, top_k)
+                gate, _ = moe._gates_and_aux(probs, eids)
+                want = torch.zeros(out.shape, dtype=torch.float32, device=out.device)
+                for t in range(xf.shape[0]):
+                    for j in range(top_k):
+                        e = int(eids[t, j])
+                        x = xf[t].float()
+                        h = torch.nn.functional.silu(x @ p.w_gate[e].float()) * (x @ p.w_up[e].float())
+                        want[t] += gate[t, j] * (h @ p.w_down[e].float())
+                errs.append(float(torch.linalg.vector_norm(out - want) / torch.linalg.vector_norm(want)))
+            return out, aux
+
+        return checked
+
+    layers.set_perf_flags(moe_decode_gather=True)
+    try:
+        eng.generate(toks, 2)  # warm-up
+        t = time.perf_counter()
+        out, logits = eng.generate(toks, N, return_logits=True)
+        gen_s = time.perf_counter() - t
+        step_ms = np.array(eng.timings["step_s"]) * 1e3
+        assert bool(torch.isfinite(logits.float()).all()), f"{cfg.name}: non-finite decode logits with the gather"
+        assert np.array_equal(out[:, 1:], logits[:, :-1].argmax(-1).cpu().numpy()), f"{cfg.name}: not greedy"
+        del logits
+        with _Patch(moe, "decode_gather", held_layer0):
+            again = eng.generate(toks, N)
+    finally:
+        layers.set_perf_flags()
+    assert layers.PERF_FLAGS == {}
+    assert np.array_equal(again, out), f"{cfg.name}: the gather path decoded otherwise on a second run"
+    # the dense path's drops at decode: its own generate, each routing's dropped entries counted
+    with _Patch(moe, "route", _recorded(routes, lambda r: (r.eids.shape[0], (~r.keep).sum()))):
+        eng.generate(toks, N)
+    dec = [int(d) for T, d in routes if T * k <= E]
+    rec = {
+        "phase": "lm-gather", "arch": cfg.name, "layers": cfg.n_layers, "batch": B, "steps": N,
+        "perf_flags": {"moe_decode_gather": True}, "decode_ms_median": float(np.median(step_ms)),
+        "decode_ms_p99": float(np.percentile(step_ms, 99)), "decode_ms_max": float(step_ms.max()),
+        "generate_s": gen_s, "tokens_per_s": B * N / gen_s,
+        "dense": {k_: dense[k_] for k_ in ("decode_ms_median", "decode_ms_p99", "decode_ms_max", "tokens_per_s")},
+        "gather_calls": len(gathers), "gather_calls_expected": N * cfg.n_layers, "gather_dropped": sum(gathers),
+        "dense_decode_routings": len(dec), "dense_decode_entries": len(dec) * B * k,
+        "dense_dropped_entries": sum(dec), "first_layer_vs_plain_f32": {"max_rel_l2": max(errs), "steps": len(errs),
+                                                                        "tol_rel_l2": LM_GATHER_REL},
+        "kernel_launches": dict(build.launches), "nvidia_smi": _smi_line(), "seconds": time.perf_counter() - t_phase,
+    }
+    emit(rec)
+    assert len(gathers) == N * cfg.n_layers, f"{cfg.name}: {len(gathers)} gather calls, not one per layer and step"
+    assert sum(gathers) == 0, f"{cfg.name}: the gather path dropped {sum(gathers)} tokens"
+    assert len(errs) == N and max(errs) <= LM_GATHER_REL, f"{cfg.name}: the gather path vs plain f32: {max(errs)}"
+    assert not any(rec["kernel_launches"].values()), f"lm-gather launched {rec['kernel_launches']}"
+
+
+def _owner(o) -> str:
+    """A short name of an object that refers to a tensor."""
+    if isinstance(o, dict):
+        return f"dict({', '.join(sorted(map(str, o))[:4])})"
+    if isinstance(o, (tuple, list)):
+        return f"{type(o).__name__}[{len(o)}]"
+    name = getattr(o, "__qualname__", None) or getattr(getattr(o, "f_code", None), "co_qualname", None)
+    return f"{type(o).__name__}({name})" if name else type(o).__name__
+
+
+def held_tensors(torch, what: str, top: int = 8, depth: int = 3) -> dict:
+    """After ``gc.collect()``: the CUDA memory still allocated, the live
+    CUDA tensors the collector sees (summed by storage) and, for the
+    ``top`` largest, who refers to them, ``depth`` referrers up
+    (``gc.get_referrers``, the first referrer at each step)."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    found = [o for o in gc.get_objects() if torch.is_tensor(o) and o.is_cuda]
+    storages = {}
+    for t in found:
+        st = t.untyped_storage()
+        storages.setdefault(st.data_ptr(), (st.nbytes(), t))
+    tensor_bytes = sum(n for n, _ in storages.values())
+    largest = sorted(storages.values(), key=lambda x: -x[0])[:top]
+    skip = {id(found), id(storages), id(largest)}
+    rows = []
+    for nbytes, t in largest:
+        chain, cur = [], t
+        for _ in range(depth):
+            refs = [r for r in gc.get_referrers(cur) if id(r) not in skip and r is not found
+                    and not (isinstance(r, tuple) and len(r) == 2 and r[1] is cur)]
+            if not refs:
+                break
+            chain.append(_owner(refs[0]))
+            cur = refs[0]
+        rows.append({"gb": nbytes / 1e9, "shape": list(t.shape), "dtype": str(t.dtype), "referrers": chain})
+    del found, storages, largest
+    rec = {"phase": "held", "at": what, "allocated_gb": torch.cuda.memory_allocated() / 1e9,
+           "live_tensor_gb": tensor_bytes / 1e9, "largest": rows}
+    emit(rec)
+    return rec
 
 
 def _greedy_agrees(name, step, tok, ref):
@@ -2194,7 +2476,17 @@ def lm_parity(torch, dev) -> None:
     for name in LM_PARITY_FAMILIES:
         cfg = reduced(ARCHS[name])
         fams.append(_lm_pair(torch, dev, dataclasses.replace(cfg, n_layers=cfg.superblock), LM_PARITY_REL.get(name)))
-    emit({"phase": "lm-parity", "full_width": full, "families": fams,
+    # the MoE perf flag: reduced mixtral (batch 2, top-2 of 4: the gather path at every decode step)
+    from repro_torch.models import layers
+
+    cfg = reduced(ARCHS["mixtral-8x7b"])
+    layers.set_perf_flags(moe_decode_gather=True)
+    try:
+        flagged = [{"perf_flags": {"moe_decode_gather": True},
+                    **_lm_pair(torch, dev, dataclasses.replace(cfg, n_layers=cfg.superblock))}]
+    finally:
+        layers.set_perf_flags()
+    emit({"phase": "lm-parity", "full_width": full, "families": fams, "perf_flags": flagged,
           "seconds": time.perf_counter() - t_phase})
     torch.cuda.empty_cache()
 
@@ -2210,7 +2502,7 @@ def _no_kernel_launches(build, what: str) -> dict:
     return launches
 
 
-def train_flops(cfg, batch: int, seq: int) -> dict:
+def train_flops(cfg, batch: int, seq: int, attn_pairs_share: float = 1.0) -> dict:
     """FLOPs of one train step of a dense config.  ``total``, as the port
     executes them: 6 N T for the matmul parameters (each layer's projections
     and MLP, and the head; the embedding is a gather), the remat forward of
@@ -2219,13 +2511,16 @@ def train_flops(cfg, batch: int, seq: int) -> dict:
     a layer forward, again in the remat forward, twice that backward).
     ``model``, the conventional model-FLOP count: 6 N T plus causal
     attention's products forward and backward (6 B S^2 H hd a layer, half
-    of PaLM's 12 L H hd S per token), no remat."""
+    of PaLM's 12 L H hd S per token), no remat.  ``attn_pairs_share``: the
+    share of the block pairs the scan runs (the paired schedule's
+    nq (nq + 1) / 2 of nq^2)."""
     assert cfg.family == "dense"
     D, hd, T = cfg.d_model, cfg.head_dim_, batch * seq
     per_layer = 2 * D * cfg.n_heads * hd + 2 * D * cfg.n_kv_heads * hd + 3 * D * cfg.d_ff
     n_layers, n_head = cfg.n_layers * per_layer, D * cfg.vocab_size
     attn = 4 * batch * seq * seq * cfg.n_heads * hd * cfg.n_layers
-    out = {"6NT": 6 * (n_layers + n_head) * T, "remat_forward": 2 * n_layers * T, "attention": 4 * attn}
+    out = {"6NT": 6 * (n_layers + n_head) * T, "remat_forward": 2 * n_layers * T,
+           "attention": 4 * attn * attn_pairs_share}
     out["total"] = sum(out.values())
     out["causal_attention"] = 6 * batch * seq * seq * cfg.n_heads * hd * cfg.n_layers
     out["model"] = out["6NT"] + out["causal_attention"]
@@ -2294,6 +2589,9 @@ def train_phase(torch, dev) -> None:
     opt = optimizer.OptConfig(kind=cfg.optimizer, lr=TRAIN_LR)
     torch.cuda.empty_cache()
     held = torch.cuda.memory_allocated()  # what earlier phases still hold
+    if held > HELD_LIMIT_GB * 1e9:
+        held_tensors(torch, "before train")
+        raise AssertionError(f"{held / 1e9:.2f} GB still allocated before the train phase")
     torch.cuda.reset_peak_memory_stats()
     b0 = train_cli.to_device(data.global_batch(0), dev)
 
@@ -2345,33 +2643,20 @@ def train_phase(torch, dev) -> None:
         },
     }
 
+    # the masked run's first step, on the host, for the paired run's first step
+    p_mb2 = [x.cpu() for x in tree_flatten(state["params"])[0]]
+    m_mb2 = [x.cpu() for x in tree_flatten(state["opt"]["m"])[0]]
+
     # TRAIN_STEPS timed steps on one repeated batch, then one profiled step
     rep = train_cli.to_device(data.global_batch(1), dev)
-    step_s, losses, gnorms = [], [], []
-    for _ in range(TRAIN_STEPS):
-        t = time.perf_counter()
-        state, m = step(state, rep)
-        losses.append(float(m["loss"]))
-        gnorms.append(float(m["grad_norm"]))
-        step_s.append(sync_s(t))
-    checks["repeated_batch_loss_falls"] = {"losses": losses, "ok": losses[-1] < losses[0]}
-    checks["finite"] = {"ok": bool(np.isfinite([loss0, gnorm0, loss_mb1, *losses, *gnorms]).all())}
-    out = {}
-    t = time.perf_counter()
-    prof = _profile(torch, lambda: out.update(m=step(state, rep)[1]), top=10, cpu_ops=False)
-    prof["seconds_with_processing"] = time.perf_counter() - t
-    med = float(np.median(step_s))
-    flops = train_flops(cfg, B, S)
+    run = _timed_train_steps(torch, step, state, rep, cfg, B, S, 1.0)
+    checks["repeated_batch_loss_falls"] = {"losses": run["losses"], "ok": run["losses"][-1] < run["losses"][0]}
+    checks["finite"] = {"ok": bool(np.isfinite([loss0, gnorm0, loss_mb1, *run["losses"], *run["grad_norms"]]).all())}
     rec = {
         "phase": "train", "arch": cfg.name, "layers": cfg.n_layers, "params": cfg.param_counts()[0],
         "optimizer": cfg.optimizer, "lr": TRAIN_LR, "remat": cfg.remat, "batch": B, "seq": S, "microbatches": TRAIN_MB,
         "init_s": init_s, "state_gb": state_gb, "mb1_step_s": mb1_s, "warmup_step_s": warm_s,
-        "step_ms_median": med * 1e3, "step_ms_max": max(step_s) * 1e3, "step_ms": [x * 1e3 for x in step_s],
-        "tokens_per_s": B * S / med, "flops": flops,
-        "executed_flop_share": flops["total"] / med / BF16_FLOPS_PER_S,
-        "model_flop_share": flops["model"] / med / BF16_FLOPS_PER_S,
-        "loss_first": loss0, "grad_norm_first": gnorm0, "losses": losses, "grad_norms": gnorms,
-        "profiled_step": {**prof, "loss": float(out["m"]["loss"])},
+        **run, "loss_first": loss0, "grad_norm_first": gnorm0,
         "peak_device_gb": (torch.cuda.max_memory_allocated() - held) / 1e9, "peak_mb1_gb": peak_mb1_gb,
         "held_before_gb": held / 1e9, "checks": checks, "nvidia_smi": _smi_line(),
         "kernel_launches": dict(build.launches), "seconds": time.perf_counter() - t_phase,
@@ -2380,8 +2665,85 @@ def train_phase(torch, dev) -> None:
     failed = [k for k, v in checks.items() if not v["ok"]]
     assert not failed, f"train: checks failed: {failed}"
     _no_kernel_launches(build, "train")
-    del state, out, b0, rep
+    del state, run, b0
     torch.cuda.empty_cache()
+
+    # ---- the same glm4-9b with the paired causal schedule -------------------
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    nq = S // 512  # the model's attention blocks
+    calls = []
+    layers.set_perf_flags(paired_causal=True)
+    try:
+        state = ts.init_state(cfg, t2, train_cli.SEED, device=dev)
+        b0 = train_cli.to_device(data.global_batch(0), dev)
+        with _Patch(layers, "_paired_causal", _recorded(calls, lambda out: 1)):
+            t = time.perf_counter()
+            state, m = step(state, b0)
+            first_s = sync_s(t)
+        loss_p = float(m["loss"])
+        first = _same_first_update(torch, state, p_mb2, m_mb2, TRAIN_LR)
+        del p_mb2, m_mb2, b0
+        pchecks = {
+            "paired_branch_taken": {"calls": len(calls), "ok": len(calls) > 0},
+            "first_loss_vs_masked": {"loss": loss_p, "masked": loss0, "atol": PAIRED_LOSS_ATOL,
+                                     "ok": abs(loss_p - loss0) <= PAIRED_LOSS_ATOL},
+            "first_update_vs_masked": {
+                **first, "tol": {"params": TRAIN_MB_PARAM_ATOL, "m_leaf_rel": TRAIN_REL,
+                                 "params_within": "2 lr + 1 ulp", "params_beyond_ulp_share": TRAIN_REL},
+                "ok": (first["max_param_diff"] <= TRAIN_MB_PARAM_ATOL and first["m_worst_leaf"] <= TRAIN_REL
+                       and first["params_beyond_2lr_ulp"] == 0 and first["params_beyond_ulp"] <= TRAIN_REL * first["params"]),
+            },
+        }
+        run = _timed_train_steps(torch, step, state, rep, cfg, B, S, nq * (nq + 1) / 2 / nq**2)
+    finally:
+        layers.set_perf_flags()
+    assert layers.PERF_FLAGS == {}
+    pchecks["finite"] = {"ok": bool(np.isfinite([loss_p, *run["losses"], *run["grad_norms"]]).all())}
+    rec_p = {
+        "phase": "train-paired", "arch": cfg.name, "layers": cfg.n_layers, "batch": B, "seq": S,
+        "microbatches": TRAIN_MB, "perf_flags": {"paired_causal": True}, "attention_block_pairs": [nq * (nq + 1) // 2, nq**2],
+        "first_step_s": first_s, **run,
+        "masked": {k: rec[k] for k in ("step_ms_median", "step_ms_max", "tokens_per_s", "executed_flop_share",
+                                        "model_flop_share")}
+                  | {k: rec["profiled_step"][k] for k in ("device_ms", "device_busy", "device_launches")},
+        "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9, "checks": pchecks, "nvidia_smi": _smi_line(),
+        "kernel_launches": dict(build.launches), "seconds": time.perf_counter() - t_phase,
+    }
+    emit(rec_p)
+    failed = [k for k, v in pchecks.items() if not v["ok"]]
+    assert not failed, f"train-paired: checks failed: {failed}"
+    _no_kernel_launches(build, "train-paired")
+    del state, run, rep
+    torch.cuda.empty_cache()
+
+
+def _timed_train_steps(torch, step, state, rep, cfg, B: int, S: int, attn_pairs_share: float) -> dict:
+    """TRAIN_STEPS timed steps of ``step`` on the repeated batch ``rep``,
+    then one profiled step: step ms, tokens/s, FLOP shares (attention as
+    the scan runs it: ``attn_pairs_share`` of the block pairs), losses and
+    the profile.  ``state`` is stepped in place."""
+    step_s, losses, gnorms = [], [], []
+    for _ in range(TRAIN_STEPS):
+        t = time.perf_counter()
+        state, m = step(state, rep)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+    out = {}
+    t = time.perf_counter()
+    prof = _profile(torch, lambda: out.update(m=step(state, rep)[1]), top=10, cpu_ops=False)
+    prof["seconds_with_processing"] = time.perf_counter() - t
+    med = float(np.median(step_s))
+    flops = train_flops(cfg, B, S, attn_pairs_share)
+    return {
+        "step_ms_median": med * 1e3, "step_ms_max": max(step_s) * 1e3, "step_ms": [x * 1e3 for x in step_s],
+        "tokens_per_s": B * S / med, "flops": flops,
+        "executed_flop_share": flops["total"] / med / BF16_FLOPS_PER_S,
+        "model_flop_share": flops["model"] / med / BF16_FLOPS_PER_S,
+        "losses": losses, "grad_norms": gnorms, "profiled_step": {**prof, "loss": float(out["m"]["loss"])},
+    }
 
 
 def _leaf_paths(x, path: str = "") -> list:
@@ -2579,7 +2941,7 @@ def train_parity(torch, dev) -> None:
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.kernels import build
     from repro_torch.launch import train as train_cli
-    from repro_torch.models import moe
+    from repro_torch.models import layers, moe
     from repro_torch.models.carry import to_device
     from repro_torch.training import compress, optimizer, train_step as ts
 
@@ -2606,21 +2968,25 @@ def train_parity(torch, dev) -> None:
     t_phase = time.perf_counter()
     build.reset_launches()
     runs = []
-    for name, kw in TRAIN_PARITY:
+    for name, row in TRAIN_PARITY:
         t = time.perf_counter()
+        kw = {k: v for k, v in row.items() if k not in ("perf_flags", "seq", "batch")}
+        layers.set_perf_flags(**row.get("perf_flags", {}))
+        paired = []
         cfg = reduced(ARCHS[name])
         cfg = dataclasses.replace(cfg, n_layers=cfg.superblock)
         tcfg = ts.TrainConfig(opt=optimizer.OptConfig(kind=cfg.optimizer, lr=TRAIN_PARITY_LR), **kw)
         cpu = ts.init_state(cfg, tcfg, SEED, device="cpu")
-        shape = ShapeConfig("parity", TRAIN_PARITY_SEQ, TRAIN_PARITY_BATCH, "train")
+        shape = ShapeConfig("parity", row.get("seq", TRAIN_PARITY_SEQ), row.get("batch", TRAIN_PARITY_BATCH), "train")
         data = SyntheticLM(cfg, shape, DataConfig(seed=SEED))
         step = ts.make_train_step(cfg, tcfg)
         steps = []
         for s in range(TRAIN_PARITY_STEPS):
             b = data.global_batch(s)
             before = host(cpu)
-            card, mg, r_card, c_card, o_card = one_step(step, to_device(cpu, dev), train_cli.to_device(b, dev))
-            cpu, mc, r_cpu, c_cpu, o_cpu = one_step(step, cpu, train_cli.to_device(b, "cpu"))
+            with _Patch(layers, "_paired_causal", _recorded(paired, lambda out: out.device.type)):
+                card, mg, r_card, c_card, o_card = one_step(step, to_device(cpu, dev), train_cli.to_device(b, dev))
+                cpu, mc, r_cpu, c_cpu, o_cpu = one_step(step, cpu, train_cli.to_device(b, "cpu"))
             rec = {**{k: [float(mg[k]), float(mc[k])] for k in ("loss", "grad_norm")}, "routings": len(r_cpu)}
             try:
                 assert len(r_card) == len(r_cpu) and len(c_card) == len(c_cpu), "the steps differ in calls"
@@ -2655,8 +3021,14 @@ def train_parity(torch, dev) -> None:
             for a, b in zip(tree_flatten(got)[0], tree_flatten(want)[0]):
                 if not torch.equal(a.cpu(), b):
                     raise AssertionError(f"{name}: compress_tree on the card differs from the CPU's")
-        runs.append({"arch": name, "layers": cfg.n_layers, "optimizer": cfg.optimizer, **kw, "steps": steps,
-                     "seconds": time.perf_counter() - t})
+        layers.set_perf_flags()
+        if "paired_causal" in row.get("perf_flags", {}):
+            n_card, n_cpu = paired.count("cuda"), paired.count("cpu")
+            if not n_card or n_card != n_cpu:
+                raise AssertionError(f"{name}: the paired branch ran {n_card} times on the card, {n_cpu} on the CPU")
+        runs.append({"arch": name, "layers": cfg.n_layers, "optimizer": cfg.optimizer, **row, "steps": steps,
+                     "paired_calls": len(paired), "seconds": time.perf_counter() - t})
+    assert layers.PERF_FLAGS == {}
     emit({"phase": "train-parity", "seq": TRAIN_PARITY_SEQ, "batch": TRAIN_PARITY_BATCH, "lr": TRAIN_PARITY_LR,
           "runs": runs, "kernel_launches": _no_kernel_launches(build, "train-parity"),
           "seconds": time.perf_counter() - t_phase})
@@ -2721,6 +3093,47 @@ def train_cli_phase(torch, dev) -> None:
 
 
 # ----------------------------------------------------------- paged phase
+
+
+def examples_phase(torch, dev) -> None:
+    """The port's example twins as a user runs them, on the card (their
+    default device), through ``runpy``: ``torch_quickstart.py`` (B1-B3
+    must launch), ``torch_paged_decode.py`` (B4 must launch) and
+    ``torch_train_lm.py --steps 4`` into a fresh checkpoint directory.
+    Each one's seconds, launches and last printed line."""
+    import contextlib
+    import io
+    import runpy
+    import shutil
+    import tempfile
+
+    from repro_torch.kernels import build
+
+    root = Path(__file__).resolve().parent
+    ckpt = tempfile.mkdtemp(prefix="torch_train_lm_")
+    runs, needs = [], {"torch_quickstart.py": ("get", "cache_probe_p2", "cache_probe_p1", "range_walk"),
+                       "torch_paged_decode.py": ("paged_gather",), "torch_train_lm.py": ()}
+    try:
+        for name, argv in (("torch_quickstart.py", []), ("torch_paged_decode.py", []),
+                           ("torch_train_lm.py", ["--steps", "4", "--ckpt", ckpt])):
+            build.reset_launches()
+            out = io.StringIO()
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                runpy.run_path(str(root / "examples" / name))["main"](argv)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+            launches = dict(build.launches)
+            lines = out.getvalue().splitlines()
+            runs.append({"example": name, "argv": argv, "seconds": secs, "launches": launches,
+                         "lines": len(lines), "last_line": lines[-1][:160] if lines else ""})
+            missing = [k for k in needs[name] if not launches.get(k)]
+            assert not missing, f"{name}: kernels {missing} did not launch ({launches})"
+            assert "on cuda" in out.getvalue(), f"{name}: did not run on the card"
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    emit({"phase": "examples", "runs": runs, "seconds": sum(r["seconds"] for r in runs)})
+    torch.cuda.empty_cache()
 
 
 def _median_ms(xs) -> float:
@@ -3079,35 +3492,7 @@ def main() -> int:
     oracle.check_range(warm_starts, 10, st.range(warm_starts, limit=10))
 
     # ---- 2. kernels against their plain versions ---------------------------
-    kernels = {}
-    L, ML = 10 + 4 * st.cfg.ib_cap, 4
-    one = torch.zeros(1, device=dev)
-    floor = {"launch_floor_ms": time_ms(torch, lambda: one.fill_(0)),
-             "launch_floor_cold_ms": time_ms(torch, lambda: one.fill_(0), cold=True)}
-    q2 = draw(W)
-    for name, (kern, plain, source, replaces, cost) in kernel_cases(torch, st, q2, L, ML).items():
-        got, want = kern(), plain()
-        err = max_abs_err(torch, name, got, want)
-        ms, plain_ms = time_ms(torch, kern), time_ms(torch, plain)
-        nbytes, nops = cost(got)
-        bound_ms, bound_by = bound(nbytes, nops)
-        kernels[name] = {
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-        }
-        extra = {}
-        if name == "get":  # B1: also from a cold L2, and the launch plan the wave got
-            kernels[name]["cold_ms"] = extra["cold_ms"] = time_ms(torch, kern, cold=True)
-            extra["plan"] = get_plan(torch, st, W)
-        elif name.startswith("cache_probe"):  # B2: the same, the wave's shares and the launch floor
-            extra = {"cold_ms": time_ms(torch, kern, cold=True), **probe_wave(torch, st, q2, int(name[-1])),
-                     "hit": float(got[0].float().mean()), **floor}
-            kernels[name].update(extra)
-        emit({"phase": "kernel", "kernel": name, "equal": True, "ms": ms, "plain_ms": plain_ms,
-              "bytes": nbytes, "ops": nops, "bound_ms": bound_ms, "bound_by": bound_by, **extra,
-              "shapes": {"requests": W, "depth": st.depth, "L": L if name == "range_walk" else None}})
-    del got, want
+    kernels = kernel_phase(torch, dev, st, draw(W))
 
     # ---- 3. the main path --------------------------------------------------
     build.reset_launches()
@@ -3157,7 +3542,7 @@ def main() -> int:
     stats = st.stats
     assert stats.flush_cycles == stats.stitch_applies, "batched flush: one apply per cycle"
     assert stats.cache_hits > s0.cache_hits and stats.scan_hits > s0.scan_hits
-    emit({
+    main_rec = {
         "phase": "main", "keys": N_KEYS, "wave": W, "depth": st.depth,
         "inner_nodes_per_level": inner_nodes_per_level(st.image),
         "leaves_pool": int(st.tree.leaf_count.shape[0]), "slots_pool": int(st.tree.hbm_keys.shape[0]),
@@ -3170,7 +3555,8 @@ def main() -> int:
         "flush_cycles": stats.flush_cycles, "stitch_applies": stats.stitch_applies,
         "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
         "oracle": "all GET and RANGE answers equal",
-    })
+    }
+    emit(main_rec)
     # ---- where one wave's time goes (torch.profiler) ------------------------
     profile_wave(torch, "get", W, lambda: st.get(draw(W)))
     profile_wave(torch, "range", W, lambda: st.range(draw(W), limit=10))
@@ -3183,6 +3569,7 @@ def main() -> int:
     # ---- the versioned phase and the tenant deployment, on the same keys -----
     versioned_phase(torch, dev, keys, vals)
     tenants_phase(torch, dev, keys)
+    btree_phase(torch, dev, keys, vals, main_rec["get_mops"])
     dist_ctx = sharded_phase(torch, dev, keys, vals, smi)
     del keys, vals
     dist_phase(torch, dev, dist_ctx, smi)
@@ -3237,12 +3624,14 @@ def main() -> int:
     kv_dryrun_phase(torch, dev)
     serve_cli_phase(torch, dev)
 
+    held_tensors(torch, "before paged")
     paged_phase(torch, dev, kernels)
     lm_phase(torch, dev)
     lm_parity(torch, dev)
     train_phase(torch, dev)
     train_parity(torch, dev)
     train_cli_phase(torch, dev)
+    examples_phase(torch, dev)
 
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)

@@ -2,7 +2,10 @@
 pla and tree (host image + device pools), lookup (batched traversal), the
 insert buffers and the two caches, patch + stitch + epoch (the update
 cycle and the point-in-time window), ttl (expiry deadlines), carry (state
-exchange with the JAX package) and the store facade.
+exchange with the JAX package) and the store facade.  The evaluation
+substrates beside it: datasets, perfmodel (the Sec 4.2.6 access model),
+btree (the fully packed B+-tree baseline of Fig 12) and rolex_model (the
+ROLEX cost model of Fig 15).
 """
 
 from .tree import TreeConfig, TreeImage, DeviceTree, build_image, SEG_CAP, NODE_SEGS

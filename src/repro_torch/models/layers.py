@@ -6,7 +6,8 @@ flavours picked per layer by the config:
 
   * ``full``   — causal (or bidirectional for encoders) over the whole
     sequence: every KV block is scanned under a mask, or, with
-    ``causal_scheme="paired"``, the triangular pair schedule;
+    ``causal_scheme="paired"`` or the ``paired_causal`` flag, the
+    triangular pair schedule;
   * ``window`` — sliding-window attention: each Q block attends to a
     fixed-width KV span ending at itself;
   * ``chunk``  — block-diagonal chunks of local attention.
@@ -21,8 +22,22 @@ that the reference avoids (``preferred_element_type``).  Products of two
 bf16 operands (projections, MLPs) stay bf16 matmuls with f32 accumulation
 on both sides.
 
-The reference's ``PERF_FLAGS`` / ``UNROLL_ATTN`` globals and sharding
-constraints are GSPMD and dry-run hints and do not come over.
+``PERF_FLAGS`` / ``set_perf_flags`` carry the reference's flags that
+change what is computed: ``paired_causal`` (full causal attention takes the
+paired schedule), ``block_kv`` (the KV block of ``blockwise_attention``)
+and ``moe_decode_gather`` (``models/moe.py``).  Any other name is refused:
+the reference's sharding hints pin GSPMD layouts, and ``moe_bf16_combine``
+shrinks a GSPMD all-reduce (see ``models/moe.py``); they come with the
+port's sharding.  ``UNROLL_ATTN`` has no twin: it only lets XLA's cost
+analysis, which counts a loop body once, see every block; PyTorch runs and
+counts every block anyway.
+
+The masked scan stays the default, as in the reference, though the paired
+schedule does fewer block steps: its output and query gradient are the
+masked scan's bit for bit on the CPU, but it sums the key and value
+gradients over the query blocks in another order, so a training step's
+numbers change in the last bits.  Which of the two a run takes is the
+caller's choice.
 """
 
 from __future__ import annotations
@@ -34,6 +49,21 @@ import torch.nn.functional as F
 
 NEG_INF = -1e30
 _DRAW = 1 << 26  # values drawn at a time by ``normal``
+
+# the reference's perf flags that change the computation (default off)
+PERF_FLAG_NAMES = ("paired_causal", "block_kv", "moe_decode_gather")
+PERF_FLAGS: dict = {}
+
+
+def set_perf_flags(**kw) -> None:
+    """Clears the flags, then sets those of ``kw`` whose value is not
+    ``None``.  A name outside ``PERF_FLAG_NAMES`` raises ``ValueError`` and
+    leaves the flags as they were."""
+    unknown = sorted(set(kw) - set(PERF_FLAG_NAMES))
+    if unknown:
+        raise ValueError(f"unknown perf flags {unknown}: the port takes {list(PERF_FLAG_NAMES)}")
+    PERF_FLAGS.clear()
+    PERF_FLAGS.update({k: v for k, v in kw.items() if v is not None})
 
 
 def normal(gen: torch.Generator, shape, scale: float, dtype, device) -> torch.Tensor:
@@ -49,10 +79,37 @@ def normal(gen: torch.Generator, shape, scale: float, dtype, device) -> torch.Te
     return out
 
 
+def _pow2(n: int) -> bool:
+    return n & (n - 1) == 0
+
+
+def count(n: int, like: torch.Tensor):
+    """``n``, to divide ``like`` by with one rounding on every device.  A
+    CUDA tensor divided by a Python number, and ``torch.mean`` on the card,
+    are multiplied by the count's reciprocal: two roundings where the CPU
+    rounds once.  A power of two has an exact reciprocal and stays a number
+    (no launch); any other count is a 0-d tensor of ``like``'s dtype on its
+    device."""
+    if _pow2(n):
+        return float(n)
+    return torch.full((), float(n), dtype=like.dtype, device=like.device)
+
+
+def mean(x: torch.Tensor, dim=None, keepdim: bool = False) -> torch.Tensor:
+    """The mean of ``x`` over ``dim`` (all of it where ``None``): the sum
+    divided by the count, one rounding on every device, as ``torch.mean``
+    rounds on the CPU (bit for bit).  A power-of-two count keeps
+    ``torch.mean``, one kernel, whose reciprocal is then exact."""
+    n = x.numel() if dim is None else x.shape[dim]
+    op = torch.mean if _pow2(n) else torch.sum
+    s = op(x) if dim is None else op(x, dim=dim, keepdim=keepdim)
+    return s if _pow2(n) else s / count(n, s)
+
+
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     dt = x.dtype
     xf = x.float()
-    xf = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    xf = xf * torch.rsqrt(mean(xf * xf, dim=-1, keepdim=True) + eps)
     return (xf * w.float()).to(dt)
 
 
@@ -60,9 +117,8 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     """Rotary embedding. x: (..., S, H, hd); positions: (..., S)."""
     hd = x.shape[-1]
     half = hd // 2
-    freqs = torch.exp(
-        -math.log(theta) * torch.arange(0, half, dtype=torch.float32, device=x.device) / half
-    )
+    ang0 = -math.log(theta) * torch.arange(0, half, dtype=torch.float32, device=x.device)
+    freqs = torch.exp(ang0 / count(half, ang0))
     ang = positions[..., :, None].float() * freqs[None, :]
     cos = torch.cos(ang)[..., :, None, :]  # (..., S, 1, half)
     sin = torch.sin(ang)[..., :, None, :]
@@ -127,6 +183,7 @@ def blockwise_attention(
     _, Skv, Hkv, _ = k.shape
     G = H // Hkv
     scale = 1.0 / math.sqrt(hd)
+    block_kv = PERF_FLAGS.get("block_kv", block_kv)
     block_q = min(block_q, Sq)
     block_kv = min(block_kv, Skv)
     if Sq % block_q or Skv % block_kv:
@@ -197,7 +254,7 @@ def blockwise_attention(
     vb_all = v.reshape(B, nkv, block_kv, Hkv, hd)
 
     use_paired = (
-        causal_scheme == "paired"
+        (causal_scheme == "paired" or PERF_FLAGS.get("paired_causal"))
         and flavor == "full"
         and causal
         and Sq == Skv
@@ -304,6 +361,6 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, mask=None) -> torc
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     nll = logz - gold
     if mask is None:
-        return nll.mean()
+        return mean(nll)
     mask = mask.float()
     return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

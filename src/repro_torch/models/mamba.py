@@ -18,7 +18,7 @@ from typing import NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
-from .layers import normal
+from .layers import mean, normal
 
 
 class MambaParams(NamedTuple):
@@ -64,7 +64,7 @@ def init(gen: torch.Generator, d_model: int, *, expand: int, head_dim: int, stat
 
 def _rms(x, w, eps=1e-5):
     xf = x.float()
-    xf = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    xf = xf * torch.rsqrt(mean(xf * xf, dim=-1, keepdim=True) + eps)
     return (xf * w.float()).to(x.dtype)
 
 

@@ -16,8 +16,18 @@ the reference drops them:
   * the reference's two ``mode="drop"`` scatters write into one scratch row
     that is sliced away.
 
-The reference's ``moe_decode_gather`` branch and its sharding hints are
-perf-flag paths and wait with the flags.
+The ``moe_decode_gather`` perf flag (``layers.set_perf_flags``) takes,
+where ``T * top_k <= E``, the reference's no-drop path that gathers only
+the routed experts' weights and runs a per-token SwiGLU.  Its combine adds
+``top_k`` rows into each token's zero row with ``index_add_``, whose order
+is free on the card: with ``top_k <= 2``, as in every config, the sum is
+exact in any order.
+
+The reference's ``moe_bf16_combine`` (and ``apply``'s ``combine_dtype``)
+is refused here, with the sharding hints.  It halves the bytes of GSPMD's
+all-reduce over an F-sharded expert contraction, which one card does not
+have, and with ``top_k <= 2`` it changes no number: the experts' outputs
+are bf16 already, and ``0 + a + b`` rounds to bf16 once either way.
 """
 
 from __future__ import annotations
@@ -27,7 +37,7 @@ from typing import NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
-from .layers import normal
+from .layers import PERF_FLAGS, mean, normal
 
 
 class MoEParams(NamedTuple):
@@ -66,14 +76,29 @@ def init(gen: torch.Generator, d_model: int, d_ff: int, n_experts: int, dtype, d
     )
 
 
-def route(p: MoEParams, xf: torch.Tensor, *, top_k: int, capacity_factor: float) -> Routing:
-    """Router, top-k, aux loss and the capacity-clipped dispatch of the
-    tokens ``xf`` (T, D)."""
+def _router(p: MoEParams, xf: torch.Tensor, top_k: int):
+    """The router's probabilities (T, E) f32 and the top-k expert ids (T, k)
+    of the tokens ``xf`` (T, D)."""
     logits = xf.float() @ p.router
     probs = torch.softmax(logits, dim=-1)
     # top-k, ties to the lower index (jax.lax.top_k)
-    eids = torch.sort(probs, dim=-1, descending=True, stable=True).indices[:, :top_k]
-    return dispatch(probs, eids, capacity_factor)
+    return probs, torch.sort(probs, dim=-1, descending=True, stable=True).indices[:, :top_k]
+
+
+def _gates_and_aux(probs: torch.Tensor, eids: torch.Tensor):
+    """The renormalised gates (T, k) and the aux loss (Switch-style:
+    E * sum_e fraction_tokens_e * mean_prob_e, over the first choices)."""
+    E = probs.shape[1]
+    gate_vals = torch.gather(probs, 1, eids)
+    gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
+    frac = mean(F.one_hot(eids[:, 0], E).float(), dim=0)
+    return gate_vals, E * torch.sum(frac * mean(probs, dim=0))
+
+
+def route(p: MoEParams, xf: torch.Tensor, *, top_k: int, capacity_factor: float) -> Routing:
+    """Router, top-k, aux loss and the capacity-clipped dispatch of the
+    tokens ``xf`` (T, D)."""
+    return dispatch(*_router(p, xf, top_k), capacity_factor)
 
 
 def dispatch(probs: torch.Tensor, eids: torch.Tensor, capacity_factor: float) -> Routing:
@@ -81,12 +106,7 @@ def dispatch(probs: torch.Tensor, eids: torch.Tensor, capacity_factor: float) ->
     decisions ``eids`` (T, k) over the router's ``probs`` (T, E)."""
     T, E = probs.shape
     top_k = eids.shape[1]
-    gate_vals = torch.gather(probs, 1, eids)
-    gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
-
-    # aux loss (Switch-style): E * sum_e fraction_tokens_e * mean_prob_e
-    frac = F.one_hot(eids[:, 0], E).float().mean(dim=0)
-    aux = E * torch.sum(frac * probs.mean(dim=0))
+    gate_vals, aux = _gates_and_aux(probs, eids)
 
     # ---- sorted dispatch ---------------------------------------------------
     TK = T * top_k
@@ -106,6 +126,27 @@ def dispatch(probs: torch.Tensor, eids: torch.Tensor, capacity_factor: float) ->
     return Routing(probs, eids, gate_vals, aux, flat_tok[order], gate_vals.reshape(TK)[order], keep, slot, C)
 
 
+def decode_gather(p: MoEParams, xf: torch.Tensor, top_k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ``moe_decode_gather`` path for a few tokens ``xf`` (T, D): only
+    the routed experts' weights are gathered (T*k rows of each), a
+    per-token SwiGLU with the SiLU in f32, the gated rows summed in f32
+    into each token's zero row.  No token is dropped.  Returns (out (T, D)
+    f32, aux)."""
+    T, D = xf.shape
+    probs, eids = _router(p, xf, top_k)
+    gate_vals, aux = _gates_and_aux(probs, eids)
+    eflat = eids.reshape(-1)
+    xt = xf.repeat_interleave(top_k, dim=0)[:, None, :]  # (Tk, 1, D)
+    g = torch.bmm(xt, p.w_gate[eflat])[:, 0]  # (Tk, F): only the routed experts' weights
+    u = torch.bmm(xt, p.w_up[eflat])[:, 0]
+    h = F.silu(g.float()).to(xf.dtype) * u
+    y = torch.bmm(h[:, None, :], p.w_down[eflat])[:, 0]  # (Tk, D)
+    tok = torch.arange(T, device=xf.device).repeat_interleave(top_k)
+    out = torch.zeros((T, D), dtype=torch.float32, device=xf.device)
+    out.index_add_(0, tok, y.float() * gate_vals.reshape(-1, 1))
+    return out, aux
+
+
 def apply(
     p: MoEParams,
     x: torch.Tensor,  # (B, S, D)
@@ -118,6 +159,9 @@ def apply(
     E = p.router.shape[1]
     T = B * S
     xf = x.reshape(T, D)
+    if PERF_FLAGS.get("moe_decode_gather") and T * top_k <= E:
+        out, aux = decode_gather(p, xf, top_k)
+        return out.to(x.dtype).reshape(B, S, D), aux
     r = route(p, xf, top_k=top_k, capacity_factor=capacity_factor)
     EC = E * r.capacity
 

@@ -28,6 +28,7 @@ from typing import Any, Dict, Tuple
 import torch
 
 from ..checkpoint.manager import tree_flatten, tree_unflatten
+from ..models.layers import mean
 
 
 @dataclass(frozen=True)
@@ -98,9 +99,9 @@ def _adafactor_leaf(cfg: OptConfig, p, g, vr, vc, scale, decay) -> None:
     g = g.float() * scale
     g2 = g * g + 1e-30
     if _factored(cfg, p):
-        vr.mul_(decay).add_((1 - decay) * torch.mean(g2, dim=-1))
-        vc.mul_(decay).add_((1 - decay) * torch.mean(g2, dim=-2))
-        r = vr / torch.clamp(torch.mean(vr, dim=-1, keepdim=True), min=1e-30)
+        vr.mul_(decay).add_((1 - decay) * mean(g2, dim=-1))
+        vc.mul_(decay).add_((1 - decay) * mean(g2, dim=-2))
+        r = vr / torch.clamp(mean(vr, dim=-1, keepdim=True), min=1e-30)
         vhat = r[..., None] * vc[..., None, :]
     else:
         vr.mul_(decay).add_((1 - decay) * g2)
@@ -109,10 +110,18 @@ def _adafactor_leaf(cfg: OptConfig, p, g, vr, vc, scale, decay) -> None:
     upd = g / torch.sqrt(vhat + cfg.eps)
     del g, vhat
     # update clipping (RMS <= 1): adafactor's stabiliser
-    rms = torch.sqrt(torch.mean(torch.square(upd)) + 1e-30)
+    rms = torch.sqrt(mean(torch.square(upd)) + 1e-30)
     upd.div_(torch.clamp(rms, min=1.0))
     pf = p.float()
     p.copy_(pf - cfg.lr * upd - cfg.lr * cfg.weight_decay * pf)
+
+
+def clip_scale(cfg: OptConfig, gnorm: torch.Tensor) -> torch.Tensor:
+    """``min(1, grad_clip / max(gnorm, 1e-9))`` with the quotient rounded
+    once, as the reference rounds it: a Python number divided by a tensor
+    is a reciprocal times the number in PyTorch, two roundings."""
+    clip = torch.full_like(gnorm, cfg.grad_clip)
+    return torch.clamp(clip / torch.clamp(gnorm, min=1e-9), max=1.0)
 
 
 @torch.no_grad()
@@ -120,7 +129,7 @@ def update(cfg: OptConfig, params, grads, state) -> Tuple[Any, Dict[str, Any], D
     """One optimizer step, in place (see the module docstring).  Returns
     (params, state, {"grad_norm"})."""
     gnorm = _global_norm(grads)
-    scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
+    scale = clip_scale(cfg, gnorm)
     step = state["step"] + 1
     stepf = step.float()
     p_l, g_l = tree_flatten(params)[0], tree_flatten(grads)[0]

@@ -19,6 +19,7 @@ import torch
 from ..checkpoint.manager import tree_flatten, tree_unflatten
 from ..configs.base import ArchConfig
 from ..models import lm
+from ..models.layers import count
 from . import compress, optimizer
 
 
@@ -78,8 +79,9 @@ def make_train_step(cfg: ArchConfig, tcfg: TrainConfig):
                     a.add_(gi.float())
                 del g
                 loss = loss + l
-            grads = tree_unflatten(params, [a.div_(n_mb) for a in acc])
-            loss = loss / n_mb
+            n = count(n_mb, loss)  # a 0-d divisor: one rounding on the card too
+            grads = tree_unflatten(params, [a.div_(n) for a in acc])
+            loss = loss / n
             parts = {"ce": loss, "aux": torch.zeros((), dtype=torch.float32, device=loss.device)}
 
         new_err = state.get("err")

@@ -29,8 +29,9 @@ def _imported_roots(path: Path):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "chip_designs.py",
-                                          ROOT / "examples" / "torch_kv_serve.py"]
+    examples = sorted((ROOT / "examples").glob("torch_*.py"))
+    assert len(examples) == 4
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "chip_designs.py"] + examples
     assert len(files) > 10
     for f in files:
         bad = {m for m in _imported_roots(f) if m in ("jax", "jaxlib", "repro")}
@@ -47,7 +48,9 @@ def test_importing_the_port_loads_no_jax():
         "repro_torch.launch.mesh, repro_torch.launch.kv_dryrun, repro_torch.launch.local_ranks, repro_torch.configs, "
         "repro_torch.models.layers, repro_torch.models.moe, repro_torch.models.mamba, repro_torch.models.lm, "
         "repro_torch.models.carry, repro_torch.device, repro_torch.data.pipeline, repro_torch.training.optimizer, "
-        "repro_torch.training.compress, repro_torch.training.train_step, repro_torch.launch.train, runpy; runpy.run_path('examples/torch_kv_serve.py'); "
+        "repro_torch.training.compress, repro_torch.training.train_step, repro_torch.launch.train, "
+        "repro_torch.core.btree, repro_torch.core.rolex_model, runpy; "
+        "[runpy.run_path(f'examples/torch_{n}.py') for n in ('kv_serve', 'quickstart', 'paged_decode', 'train_lm')]; "
         "assert 'jax' not in sys.modules and 'repro' not in sys.modules, sorted(sys.modules)"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -747,3 +750,201 @@ def test_train_step_on_the_card_equals_the_cpu(cuda_device):
             beyond += int((d > ulp).sum())
             total += want.size
         assert beyond <= 2**-5 * total, (name, beyond, total)
+
+
+def _step_leaves(state):
+    from repro_torch.checkpoint.manager import tree_flatten
+
+    return [x.cpu() for x in tree_flatten(state)[0]]
+
+
+def _train_states_close(card, cpu, lr, what):
+    """The tolerances of ``test_train_step_on_the_card_equals_the_cpu``:
+    each moment leaf to a relative L2 error of 2^-5, every parameter within
+    ``2 * lr`` plus one bf16 ulp, at most a 2^-5 share beyond one ulp."""
+    for k in ("m", "v"):
+        for a, b in zip(_step_leaves(card["opt"][k]), _step_leaves(cpu["opt"][k])):
+            assert float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)) <= 2**-5, (what, k)
+    beyond = total = 0
+    for a, b in zip(_step_leaves(card["params"]), _step_leaves(cpu["params"])):
+        want = b.float().numpy()
+        d = np.abs(a.float().numpy() - want)
+        ulp = np.spacing(np.abs(want)) * 2.0**16
+        assert (d <= 2 * lr + ulp).all(), what
+        beyond += int((d > ulp).sum())
+        total += want.size
+    assert beyond <= 2**-5 * total, (what, beyond, total)
+
+
+@pytest.mark.cuda
+def test_three_microbatches_on_the_card_equal_the_cpu(cuda_device, monkeypatch):
+    """``microbatches=3`` divides the f32 accumulator and the loss by 3, a
+    count whose reciprocal is inexact: on the same per-microbatch gradients
+    and losses (drawn from a seed, fed in place of the backward) the card's
+    accumulated gradients and loss equal the CPU's bitwise; the clip scale
+    ``grad_clip / gnorm`` at ``grad_clip=1e-3`` equals the CPU's bitwise on
+    2^16 norms; and a real step of reduced glm4 at 3 microbatches is within
+    the train step's card-vs-CPU tolerances."""
+    from repro_torch.checkpoint.manager import tree_unflatten
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.carry import to_device
+    from repro_torch.training import optimizer
+    from repro_torch.training import train_step as ts
+
+    lr = 1e-3
+    cfg = reduced(ARCHS["glm4-9b"])
+    tcfg = ts.TrainConfig(opt=optimizer.OptConfig(lr=lr), microbatches=3)
+    cpu = ts.init_state(cfg, tcfg, 0, device="cpu")
+    batch = SyntheticLM(cfg, ShapeConfig("t", 64, 6, "train"), DataConfig(seed=3)).global_batch(0)
+    tb = {k: (None if v is None else torch.from_numpy(v)) for k, v in batch.items()}
+
+    # the accumulation alone: drawn gradients and losses in place of the backward
+    real_vg, real_update = ts._value_and_grad, optimizer.update
+    taken = []
+
+    def drawn(cfg_, params, mb):
+        rng = np.random.default_rng(int(mb["tokens"][0, 0]))
+        leaves = _step_leaves(params)
+        g = [torch.from_numpy(rng.normal(size=p.shape).astype(np.float32)).to(p.dtype) for p in leaves]
+        dev = mb["tokens"].device
+        loss = torch.tensor(rng.normal() + 10.0, dtype=torch.float32, device=dev)
+        return loss, {}, tree_unflatten(params, [x.to(dev) for x in g])
+
+    def recorded(ocfg, params, grads, state):
+        taken.append(_step_leaves(grads))
+        return real_update(ocfg, params, grads, state)
+
+    monkeypatch.setattr(ts, "_value_and_grad", drawn)
+    monkeypatch.setattr(optimizer, "update", recorded)
+    step = ts.make_train_step(cfg, tcfg)
+    _, mc = step(ts.init_state(cfg, tcfg, 0, device="cpu"), tb)
+    _, mg = step(to_device(cpu, cuda_device), {k: (None if v is None else v.to(cuda_device)) for k, v in tb.items()})
+    assert float(mg["loss"]) == float(mc["loss"])
+    for a, b in zip(taken[1], taken[0]):
+        assert torch.equal(a, b)
+    monkeypatch.setattr(ts, "_value_and_grad", real_vg)
+    monkeypatch.setattr(optimizer, "update", real_update)
+
+    gn = torch.from_numpy(np.random.default_rng(5).lognormal(0.0, 3.0, 1 << 16).astype(np.float32))
+    ocfg = optimizer.OptConfig(grad_clip=1e-3)
+    assert torch.equal(optimizer.clip_scale(ocfg, gn.to(cuda_device)).cpu(), optimizer.clip_scale(ocfg, gn))
+
+    step = ts.make_train_step(cfg, tcfg)
+    card, mg = step(to_device(cpu, cuda_device), {k: (None if v is None else v.to(cuda_device)) for k, v in tb.items()})
+    cpu, mc = step(cpu, tb)
+    for k in ("loss", "grad_norm"):
+        assert abs(float(mg[k]) - float(mc[k])) <= 2**-7 * abs(float(mc[k])), k
+    _train_states_close(card, cpu, lr, "microbatches=3")
+
+
+@pytest.mark.cuda
+def test_paired_causal_train_step_on_the_card_equals_the_cpu(cuda_device, monkeypatch):
+    """A reduced glm4 step with ``paired_causal`` at 1024 tokens (two
+    512-token blocks: the paired branch is taken in every layer, counted on
+    both devices) on the card == on the CPU to the train step's tolerances."""
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import layers
+    from repro_torch.models.carry import to_device
+    from repro_torch.training import optimizer
+    from repro_torch.training import train_step as ts
+
+    calls = []
+    inner = layers._paired_causal
+    monkeypatch.setattr(layers, "_paired_causal", lambda *a: calls.append(a[0].device.type) or inner(*a))
+    lr = 1e-3
+    cfg = reduced(ARCHS["glm4-9b"])
+    tcfg = ts.TrainConfig(opt=optimizer.OptConfig(lr=lr))
+    cpu = ts.init_state(cfg, tcfg, 0, device="cpu")
+    card = to_device(cpu, cuda_device)
+    batch = SyntheticLM(cfg, ShapeConfig("t", 1024, 1, "train"), DataConfig(seed=3)).global_batch(0)
+    tb = {k: (None if v is None else torch.from_numpy(v)) for k, v in batch.items()}
+    step = ts.make_train_step(cfg, tcfg)
+    layers.set_perf_flags(paired_causal=True)
+    try:
+        card, mg = step(card, {k: (None if v is None else v.to(cuda_device)) for k, v in tb.items()})
+        cpu, mc = step(cpu, tb)
+    finally:
+        layers.set_perf_flags()
+    assert calls.count("cuda") >= cfg.n_layers and calls.count("cpu") == calls.count("cuda")
+    for k in ("loss", "grad_norm"):
+        assert abs(float(mg[k]) - float(mc[k])) <= 2**-7 * abs(float(mc[k])), k
+    _train_states_close(card, cpu, lr, "paired_causal")
+
+
+@pytest.mark.cuda
+def test_moe_decode_gather_on_the_card_equals_the_cpu(cuda_device):
+    """Reduced mixtral through ``Engine`` with ``moe_decode_gather`` (batch
+    2: 2 tokens top-2 of 4 experts, the gather path at every decode step):
+    greedy tokens equal, the prefill's last logits to one bf16 rounding of
+    themselves plus one of their largest magnitude."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.models import layers, lm
+    from repro_torch.models.carry import to_device
+    from repro_torch.serving.engine import Engine, ServeConfig
+
+    cfg = reduced(ARCHS["mixtral-8x7b"])
+    cfg = dataclasses.replace(cfg, n_layers=cfg.superblock)
+    params = lm.init(cfg, 0, device="cpu")
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 16)).astype(np.int32)
+    layers.set_perf_flags(moe_decode_gather=True)
+    try:
+        cpu = Engine(cfg, params, ServeConfig(max_len=32), device="cpu")
+        card = Engine(cfg, to_device(params, cuda_device), ServeConfig(max_len=32), device=cuda_device)
+        want = cpu.prefill(toks)[1].float()
+        got = card.prefill(toks)[1].float().cpu()
+        torch.testing.assert_close(got, want, rtol=2**-7, atol=2**-7 * float(want.abs().max()))
+        np.testing.assert_array_equal(card.generate(toks, 8), cpu.generate(toks, 8))
+    finally:
+        layers.set_perf_flags()
+
+
+@pytest.mark.cuda
+def test_means_and_counts_round_once_on_the_card(cuda_device):
+    """The training path's means (``layers.mean``: rms_norm, Adafactor's
+    factored and RMS means, the MoE aux loss, the CE mean) and its
+    divisions by a count (``layers.count``: rope's frequencies, the
+    microbatch mean) round once on the card as on the CPU: each mean is the
+    f64 quotient of the card's own f32 sum rounded to f32, at counts that
+    are not powers of two (13696 is glm4-9b's d_ff) and at one that is
+    (``torch.mean``, whose reciprocal is exact); each quotient by a count
+    equals the CPU's bitwise."""
+    from repro_torch.models import layers
+
+    rng = np.random.default_rng(6)
+    for shape, dim in (((3, 13696), -1), ((96, 13696), -2), ((7, 123), None), ((2, 5, 40), -1), ((4, 4096), -1)):
+        x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(cuda_device)
+        s = x.sum() if dim is None else x.sum(dim=dim)
+        n = x.numel() if dim is None else x.shape[dim]
+        assert torch.equal(layers.mean(x, dim), (s.double() / n).float()), (shape, dim)
+    a = torch.from_numpy(rng.normal(size=1 << 16).astype(np.float32))
+    for n in (3, 40, 64, 13696):
+        assert torch.equal((a.to(cuda_device) / layers.count(n, a.to(cuda_device))).cpu(), a / layers.count(n, a)), n
+
+
+@pytest.mark.cuda
+def test_btree_get_on_the_card_equals_the_cpu(cuda_device):
+    """The B+-tree baseline's pools and ``get_batch`` on the card == on the
+    CPU bitwise (100k keys, depth 3; present, absent and KEY_MAX-adjacent
+    requests), and every present key found."""
+    from repro_torch.core import btree, datasets
+    from repro_torch.core.keys import KEY_MAX, split_u64
+
+    keys = datasets.sparse(100_000, seed=3)
+    vals = keys ^ np.uint64(0xBEEF)
+    trees = [btree.build(keys, vals, device=d) for d in (cuda_device, "cpu")]
+    assert trees[0].depth == 3
+    rng = np.random.default_rng(4)
+    q = np.concatenate([rng.choice(keys, 4096), rng.integers(0, 2**64 - 1, 1024, dtype=np.uint64),
+                        np.array([0, KEY_MAX, KEY_MAX - np.uint64(1)], np.uint64)])
+    limbs = split_u64(q).view(np.int32)
+    out = [btree.get_batch(t, *(torch.from_numpy(limbs[:, i].copy()).to(t.node_keys.device) for i in (0, 1)))
+           for t in trees]
+    for a, b in zip(*out):
+        assert torch.equal(a.cpu(), b)
+    assert bool(out[1][2][:4096].all())

@@ -172,11 +172,13 @@ def test_cross_entropy_equals_jax():
         np.testing.assert_allclose(float(got), float(want), rtol=MOMENT_RTOL)
 
 
-@pytest.mark.parametrize("microbatches,compression", [(1, False), (4, False), (1, True)])
+@pytest.mark.parametrize("microbatches,compression", [(1, False), (4, False), (1, True), (3, False)])
 def test_train_step_equals_jax(microbatches, compression):
     """One ``make_train_step`` step from the same carried-in state
     (``init_state`` of the reference, as numpy) on the same batch.  (First
-    in the file: the gradient tests below reuse its eager JAX compiles.)"""
+    in the file: the gradient tests below reuse its eager JAX compiles.)
+    Three microbatches divide the accumulator and the loss by a count that
+    is not a power of two."""
     jc, tc = _configs("glm4-9b")
     lr = 1e-3
     jt = jts.TrainConfig(opt=joptimizer.OptConfig(lr=lr), microbatches=microbatches, grad_compression=compression)
@@ -303,6 +305,51 @@ def test_optimizer_init_lays_state_out_as_the_reference():
         for a, b in _leaves(want, got):
             assert tuple(a.shape) == tuple(b.shape) and str(a.dtype) == str(b.dtype).removeprefix("torch.")
             assert not to_numpy(b).any()
+
+
+def test_clip_scale_equals_jax_bitwise():
+    """The clip scale ``grad_clip / max(gnorm, 1e-9)`` at ``grad_clip=1e-3``
+    is one rounding of a true division, as in the reference: 64 gradient
+    trees of one non-zero element ``k * 2^-8`` (so the norm is exact in
+    both packages: torch's f32 ``sqrt`` on the CPU and XLA's can round an
+    inexact root apart), each through the reference's ``optimizer.update``
+    and the port's; the first moments ``(1 - b1) * scale * g`` bitwise equal
+    (a reciprocal times 1e-3 would be a rounding off in about a quarter of
+    them)."""
+    rng = np.random.default_rng(0)
+    jcfg = joptimizer.OptConfig(lr=1e-2, grad_clip=1e-3)
+    cfg = optimizer.OptConfig(**dataclasses.asdict(jcfg))
+    for _ in range(64):
+        g = np.zeros((4, 16), np.float32)
+        g.flat[rng.integers(64)] = rng.choice([-1, 1]) * rng.integers(1, 4096) * 2.0**-8
+        jp, jg = {"w": jnp.zeros((4, 16), jnp.float32)}, {"w": jnp.asarray(g)}
+        _, want, jm = joptimizer.update(jcfg, jp, jg, joptimizer.init(jcfg, jp))
+        tp = {"w": torch.zeros((4, 16))}
+        _, got, m = optimizer.update(cfg, tp, {"w": torch.from_numpy(g)}, optimizer.init(cfg, tp))
+        assert float(m["grad_norm"]) == float(jm["grad_norm"]) > jcfg.grad_clip
+        np.testing.assert_array_equal(got["m"]["w"].numpy(), np.asarray(want["m"]["w"]))
+        gn = torch.tensor(float(jm["grad_norm"]))
+        assert float(optimizer.clip_scale(cfg, gn)) == float(np.float32(1e-3) / np.float32(gn))
+
+
+@pytest.mark.parametrize("shape,dim", [((3, 13696), -1), ((96, 136), -2), ((7, 123), None), ((2, 5, 40), -1),
+                                       ((4, 64), -1)])
+def test_mean_and_count_round_once(shape, dim):
+    """``layers.mean``, the training path's mean (rms_norm, Adafactor's
+    factored and RMS means, the MoE aux loss, the CE mean), is the f32 sum
+    over the count rounded once (the f64 quotient of the same sum rounded
+    to f32) and bitwise ``torch.mean`` on the CPU, so no CPU number moves;
+    ``layers.count`` divides as a Python number does on the CPU.  Counts
+    that are not powers of two (13696 is glm4-9b's d_ff) and one that is
+    (kept as ``torch.mean``); the card's side is
+    ``tests/test_torch_boundaries.py``."""
+    x = torch.from_numpy(np.random.default_rng(6).normal(size=shape).astype(np.float32))
+    got = layers.mean(x, dim)
+    s = x.sum() if dim is None else x.sum(dim=dim)
+    n = x.numel() if dim is None else x.shape[dim]
+    assert torch.equal(got, (s.double() / n).float())
+    assert torch.equal(got, torch.mean(x) if dim is None else torch.mean(x, dim=dim))
+    assert torch.equal(x / layers.count(n, x), x / n)
 
 
 def test_grad_clip_caps_update():
