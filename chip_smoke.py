@@ -252,23 +252,25 @@ PARITY_RETAIN, PARITY_GROWTH = 40, 64.0
 NO_DEADLINE = np.iinfo(np.int64).max  # the oracle's deadline of a key without a TTL
 # the front end: launch/serve.py's serve_kv loop at the service config's
 # scale (dpastore_service.py: 50M keys, 65536-request waves), per depth
-FRONTEND_WAVES = 12  # waves per queue depth: 2 GET, 1 UPDATE, 1 RANGE in every 4 (64 before the sharded phases, 32 before the training phases, 16 before the perf-flag phases)
-FRONTEND_PROFILED = 8  # waves at depth 2 under torch.profiler
+FRONTEND_WAVES = 8  # waves per queue depth: 2 GET, 1 UPDATE, 1 RANGE in every 4 (64 before the sharded phases, 32 before the training phases, 16 before the perf-flag phases, 12 before the sharding phases)
+FRONTEND_PROFILED = 4  # waves at depth 2 under torch.profiler (8 before the sharding phases)
 FRONTEND_RANGE = 64  # RANGE starts per wave (serve.py: q[:64], limit 10)
 # frontend-parity: twin 1M-key stores over serve_kv's script with submit lag
 FRONT_PARITY_KEYS, FRONT_PARITY_WAVES, FRONT_PARITY_WAVE = 1_000_000, 32, 8192
 # the 4-tenant deployment of launch/serve.py:36-40 (--tenants 4 --tenant-rate
 # 0:2048 --tenant-weights 0:0.5 --max-delay 4, --wave-size left at 1024)
 TENANTS, TENANT_RATE, TENANT_WEIGHT0, TENANT_DELAY, TENANT_WAVE = 4, 2048.0, 0.5, 4, 1024
-TENANT_ITERS = 512  # loop iterations of serve_kv_tenants' request mix, a drain every 4
+TENANT_ITERS = 256  # loop iterations of serve_kv_tenants' request mix, a drain every 4 (512 before the sharding phases)
 CLI_KEYS = 1_000_000  # the serve-cli phase's stores
 # the sharded deployment of src/repro/launch/serve.py:15-22 (--partition range --shards
 # 4 --replication 2 --kill-primary-at 8, with --rebalance --rebalance-every 4)
 SHARDS, REPLICAS = 4, 2
 # serve_kv's loop: per 4 waves 2 GET, a fresh-insert storm, a RANGE.  Cut
 # from 32 waves: each storm takes ~14 s (~1024 retry flush cycles on each
-# replica, PERF.md section 6)
-SHARDED_WAVES = 16
+# replica, PERF.md section 6); from 16 to 12 to make room for the sharded
+# training phases (12 keeps the kill at 8 and 3 storms, the rebalance's
+# trigger, before the last check)
+SHARDED_WAVES = 12
 SHARDED_KILL_AT = 8  # shard 0's primary dies after wave 7; retire and recovery at wave 8
 SHARDED_REBALANCE_EVERY = 4
 # the planner's occupancy trigger scaled to 50M keys: the default 1.4 would
@@ -373,6 +375,26 @@ TRAIN_RTOL, TRAIN_REL, MOMENT_RTOL = 2**-7, 2**-5, 1e-6
 # sequences of 1024 tokens (at 256 x 4096 autograd keeps ~2 GB of f32 scores
 # for each of a layer's 64 attention block pairs)
 TRAIN_CLI_ARGV = ("--reduced", "--batch", "8", "--seq", "1024", "--ckpt-every", "2")
+# train-sharded: glm4-9b at full width cut to lm-parity's 2 layers (1.65 B,
+# 16.5 GB of state), AdamW at TRAIN_LR, 2 steps of 2 x 1024 tokens (one
+# sequence a data rank; at 4096 tokens the 4 ranks' f32 logits, 2.5 GB each,
+# and the whole state this process holds for them and for the comparison
+# pass the card's 80 GB), on 2 and 4 gloo ranks that share the card ((data,
+# model) = (2, 1) and (2, 2)), against the same steps in this process, to
+# tests/test_torch_sharded_train.py's tolerances after its second step:
+# losses and gradient norms of both steps 2^-7; each moment kind's whole tree
+# relative L2 2^-5 (m) and 2^-4 (v, a square of the gradient); every
+# parameter within 2 lr a step plus one bf16 ulp.  The ranks' gradients are
+# sums of their rows' bf16 gradients, one more rounding than one process's
+SHARDED_TRAIN_MESHES = ((2, 1), (2, 2))
+SHARDED_TRAIN_LAYERS, SHARDED_TRAIN_BATCH, SHARDED_TRAIN_SEQ, SHARDED_TRAIN_STEPS = 2, 2, 1024, 2
+SHARDED_TRAIN_RTOL, SHARDED_TRAIN_REL, SHARDED_TRAIN_SQUARE_REL = 2**-7, 2**-5, 2**-4
+# dryrun: python -m repro_torch.launch.dryrun for glm4-9b train_4k on both
+# production meshes (~90 s a mesh on the card machine's host), one process a
+# mesh, started in the background before train-sharded (started before
+# train, one process for both, it ran beside the host-bound training steps)
+DRYRUN_ARGV = ("--arch", "glm4-9b", "--shape", "train_4k")
+DRYRUN_MESHES = ("single", "multi")
 
 
 def draw_sparse_keys(torch, dev, n: int, seed: int) -> np.ndarray:
@@ -2558,7 +2580,7 @@ def _same_first_update(torch, state, p_ref, m_ref, lr: float) -> dict:
             "params": total}
 
 
-def train_phase(torch, dev) -> None:
+def train_phase(torch, dev) -> dict:
     """The training path at full width: glm4-9b cut to 8 of 40 layers,
     AdamW (its config's optimizer) at TRAIN_LR, block remat, train_4k's
     4096-token sequence at a global batch of 2, weights from seed 7 on the
@@ -2568,7 +2590,8 @@ def train_phase(torch, dev) -> None:
     to the reference's microbatch-equivalence tolerances; its loss equal to
     ``cross_entropy`` of a no_grad ``forward`` of that batch), 4 timed steps
     on one repeated batch (the loss must fall) and one profiled step.  B1-B4
-    must not launch."""
+    must not launch.  Returns the microbatches=2 first step's loss, gradient
+    norm, parameters, m and v (host copies) for ``train_nccl1_phase``."""
     import dataclasses
 
     from repro_torch.checkpoint.manager import tree_flatten
@@ -2644,8 +2667,10 @@ def train_phase(torch, dev) -> None:
     }
 
     # the masked run's first step, on the host, for the paired run's first step
+    # (and, with v, for train-nccl1's)
     p_mb2 = [x.cpu() for x in tree_flatten(state["params"])[0]]
     m_mb2 = [x.cpu() for x in tree_flatten(state["opt"]["m"])[0]]
+    v_mb2 = [x.cpu() for x in tree_flatten(state["opt"]["v"])[0]]
 
     # TRAIN_STEPS timed steps on one repeated batch, then one profiled step
     rep = train_cli.to_device(data.global_batch(1), dev)
@@ -2683,7 +2708,7 @@ def train_phase(torch, dev) -> None:
             first_s = sync_s(t)
         loss_p = float(m["loss"])
         first = _same_first_update(torch, state, p_mb2, m_mb2, TRAIN_LR)
-        del p_mb2, m_mb2, b0
+        del b0
         pchecks = {
             "paired_branch_taken": {"calls": len(calls), "ok": len(calls) > 0},
             "first_loss_vs_masked": {"loss": loss_p, "masked": loss0, "atol": PAIRED_LOSS_ATOL,
@@ -2716,6 +2741,7 @@ def train_phase(torch, dev) -> None:
     _no_kernel_launches(build, "train-paired")
     del state, run, rep
     torch.cuda.empty_cache()
+    return {"loss": loss0, "grad_norm": gnorm0, "params": p_mb2, "m": m_mb2, "v": v_mb2}
 
 
 def _timed_train_steps(torch, step, state, rep, cfg, B: int, S: int, attn_pairs_share: float) -> dict:
@@ -3090,6 +3116,281 @@ def train_cli_phase(torch, dev) -> None:
           "out": p.stdout.splitlines(), "cli_seconds": cli_s, "losses_first": first, "losses_whole": whole,
           "resumed_printed": printed, "restored_equal": True, "resumed_state_bitwise": True,
           "kernel_launches": _no_kernel_launches(build, "train-cli"), "seconds": time.perf_counter() - t_phase})
+
+
+def _state_bytes(cfg, tcfg, mesh_shape) -> int:
+    """One rank's bytes of a train state on ``mesh_shape`` by
+    ``distributed/sharding.py``'s specs: each leaf's size over the shard
+    count of each of its dims (every rank's the same: the specs split
+    evenly)."""
+    import math
+
+    import torch
+
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import lm
+    from repro_torch.training import optimizer
+
+    params = lm.init(cfg, torch.Generator(), device="meta")
+    opt = optimizer.init(tcfg.opt, params)
+    pspecs = shd.param_specs(cfg, params, mesh_shape)
+    specs = {"params": pspecs, "opt": shd.opt_specs(cfg, opt, pspecs, mesh_shape, zero=True)}
+    total = 0
+    for x, sp in zip(_spec_leaves({"params": params, "opt": opt}), _spec_leaves(specs)):
+        n = x.element_size()
+        for dim, ax in zip(x.shape, tuple(sp) + (None,) * (x.dim() - len(sp))):
+            axes = () if ax is None else ax if isinstance(ax, tuple) else (ax,)
+            n *= dim // math.prod(mesh_shape.size(a) for a in axes)
+        total += n
+    return total
+
+
+def _spec_leaves(x) -> list:
+    """A tree's leaves (a spec tuple is one) in ``tree_flatten``'s order."""
+    if isinstance(x, dict):
+        return [q for k in sorted(x) for q in _spec_leaves(x[k])]
+    if isinstance(x, list):
+        return [q for v in x for q in _spec_leaves(v)]
+    return [x]
+
+
+def train_sharded_phase(torch, dev) -> None:
+    """``make_train_step`` with ``grad_shardings`` on 2 and 4 ``gloo`` ranks
+    that share the card (``local_ranks.spawn_train``; the whole state and
+    the batches reach them as CUDA IPC handles): glm4-9b at full width cut
+    to 2 layers, AdamW, 2 steps of 2 x 1024 tokens, each rank keeping its
+    blocks of ``param_specs`` / ``opt_specs(zero=True)`` on the (2, 1) and
+    (2, 2) debug meshes.  Held against the same steps in this process (the
+    metrics of both; each rank compares its blocks after the second with the
+    same blocks of this process's state on the card); each rank's bytes
+    equal the specs' arithmetic.  Per rank:
+    peak GB, step ms (the first step untimed, the second with every
+    collective synchronised and timed), the collectives' bytes and ms."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS, SHAPES
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import build
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.local_ranks import spawn_train
+    from repro_torch.checkpoint.manager import tree_flatten
+    from repro_torch.training import optimizer, train_step as ts
+
+    t_phase = time.perf_counter()
+    build.reset_launches()
+    cfg = dataclasses.replace(ARCHS["glm4-9b"], n_layers=SHARDED_TRAIN_LAYERS)
+    tcfg = ts.TrainConfig(opt=optimizer.OptConfig(kind=cfg.optimizer, lr=TRAIN_LR))
+    S = SHARDED_TRAIN_SEQ
+    data = SyntheticLM(cfg, ShapeConfig("train-sharded", S, SHARDED_TRAIN_BATCH, "train"),
+                       DataConfig(seed=train_cli.SEED))
+    batches = [train_cli.to_device(data.global_batch(i), dev) for i in range(SHARDED_TRAIN_STEPS)]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+
+    # the same steps in this process: the last state kept on the card
+    state = ts.init_state(cfg, tcfg, train_cli.SEED, device=dev)
+    step = ts.make_train_step(cfg, tcfg)
+    one_metrics, one_ms = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        one_ms.append((time.perf_counter() - t) * 1e3)
+        one_metrics.append({k: float(v) for k, v in m.items()})
+    names = _leaf_paths(state)
+    want = [None] * (SHARDED_TRAIN_STEPS - 1) + [tree_flatten(state)[0]]
+    one_peak_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
+    del state, step
+
+    for mesh in SHARDED_TRAIN_MESHES:
+        t_mesh = time.perf_counter()
+        init = ts.init_state(cfg, tcfg, train_cli.SEED, device=dev)
+        reports = spawn_train([(cfg, tcfg, init, batches, want)], mesh=mesh, device=dev, backend="gloo", reps=1,
+                              keep_blocks=False)[0]
+        del init
+        torch.cuda.empty_cache()
+        spec_bytes = _state_bytes(cfg, tcfg, shd.MeshShape(("data", "model"), mesh))
+        checks = {"block_bytes": {"want": spec_bytes, "ranks": [r["block_bytes"] for r in reports],
+                                  "ok": all(r["block_bytes"] == spec_bytes for r in reports)}}
+        worst = {"loss_rel": 0.0, "m_leaf": 0.0, "v_leaf": 0.0, "m_tree": 0.0, "v_tree": 0.0}
+        ok = True
+        for r in reports:
+            for k, (w, g) in enumerate(zip(one_metrics, r["metrics"])):
+                for key in ("loss", "ce", "grad_norm"):
+                    rel = abs(g[key] - w[key]) / abs(w[key])
+                    worst["loss_rel"] = max(worst["loss_rel"], rel)
+                    ok &= rel <= SHARDED_TRAIN_RTOL
+            tree = {"m": [0.0, 0.0], "v": [0.0, 0.0]}
+            beyond = total = 0
+            for name, v in zip(names, r["vs"][-1]):  # the blocks after the last step
+                kind = name.split("/")[2] if name.startswith("/opt/") else "params"
+                if kind in tree:
+                    tree[kind][0] += v["num"]
+                    tree[kind][1] += v["den"]
+                    worst[f"{kind}_leaf"] = max(worst[f"{kind}_leaf"], (v["num"] / v["den"]) ** 0.5 if v["den"] else 0)
+                elif kind == "params":
+                    ok &= v["beyond_lr_ulp"] == 0
+                    beyond += v["beyond_ulp"]
+                    total += v["n"]
+                else:  # the step counter
+                    ok &= v["num"] == 0
+            for kind, (num, den) in tree.items():
+                err = (num / den) ** 0.5
+                worst[f"{kind}_tree"] = max(worst[f"{kind}_tree"], err)
+                ok &= err <= (SHARDED_TRAIN_REL if kind == "m" else SHARDED_TRAIN_SQUARE_REL)
+            worst["params_beyond_ulp_share"] = max(worst.get("params_beyond_ulp_share", 0.0), beyond / total)
+        checks["vs_one_process"] = {**worst, "tol": {"loss_rel": SHARDED_TRAIN_RTOL, "m_tree": SHARDED_TRAIN_REL,
+                                                     "v_tree": SHARDED_TRAIN_SQUARE_REL,
+                                                     "params": "2 lr a step + 1 ulp"}, "ok": bool(ok)}
+        checks["finite"] = {"ok": bool(np.isfinite([x["loss"] for r in reports for x in r["metrics"]]).all())}
+        launches = [r["launches"] for r in reports]
+        checks["no_kernel_launches"] = {"ok": not any(v for lc in launches for v in lc.values())}
+        rec = {
+            "phase": "train-sharded", "arch": cfg.name, "layers": cfg.n_layers, "mesh": list(mesh),
+            "ranks": mesh[0] * mesh[1], "backend": "gloo", "batch": SHARDED_TRAIN_BATCH, "seq": S,
+            "lr": TRAIN_LR, "one_process": {"step_ms": one_ms, "metrics": one_metrics, "peak_gb": one_peak_gb},
+            "per_rank": [{"coordinate": r["coordinate"], "peak_gb": r["peak_bytes"] / 1e9,
+                          "held_gb": r["held_bytes"] / 1e9, "block_gb": r["block_bytes"] / 1e9,
+                          "peak_over_blocks_gb": (r["peak_bytes"] - r["held_bytes"]) / 1e9,
+                          "step_ms": r["step_ms"], "metrics": r["metrics"],
+                          "collectives_timed_step": r["collectives"][-1]} for r in reports],
+            "checks": checks, "nvidia_smi": _smi_line(), "seconds": time.perf_counter() - t_mesh,
+        }
+        emit(rec)
+        failed = [k for k, v in checks.items() if not v["ok"]]
+        assert not failed, f"train-sharded {mesh}: checks failed: {failed}"
+    del want, batches
+    torch.cuda.empty_cache()
+    _no_kernel_launches(build, "train-sharded")
+    emit({"phase": "train-sharded-done", "seconds": time.perf_counter() - t_phase})
+
+
+def train_nccl1_phase(torch, dev, first: dict) -> None:
+    """The ``train`` phase's first microbatches=2 step (glm4-9b, 8 layers,
+    the seed's state, batch 0) again, through ``launch/train.py``'s
+    ``build`` on a (1, 1) NCCL mesh: the state as DTensors in the specs'
+    placements, the batch split by ``shard_batch``, the gradients through
+    their reduction and the optimizer's sharded path, all no-ops on one
+    rank.  It must equal the unpinned step bitwise: loss, gradient norm and
+    every parameter, m and v leaf (the ``train`` phase's host copies)."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint.manager import tree_flatten
+    from repro_torch.configs import ARCHS, SHAPES
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import build
+    from repro_torch.launch import mesh as meshes
+    from repro_torch.launch import train as train_cli
+    from repro_torch.training import optimizer, train_step as ts
+
+    t_phase = time.perf_counter()
+    build.reset_launches()
+    cfg = dataclasses.replace(ARCHS["glm4-9b"], n_layers=TRAIN_LAYERS)
+    t2 = ts.TrainConfig(opt=optimizer.OptConfig(kind=cfg.optimizer, lr=TRAIN_LR), microbatches=TRAIN_MB)
+    S = SHAPES["train_4k"].seq_len
+    data = SyntheticLM(cfg, ShapeConfig("train_4k", S, TRAIN_BATCH, "train"), DataConfig(seed=train_cli.SEED))
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with train_cli.process_group(dev):
+        backend = dist.get_backend()
+        mesh = meshes.make_debug_mesh(1, 1, device=dev)
+        step, state_sh = train_cli.build(cfg, None, mesh, t2)
+        state = ts.init_state(cfg, t2, train_cli.SEED, device=dev, shardings=state_sh)
+        b0 = shd.shard_batch(train_cli.to_device(data.global_batch(0), dev), mesh, TRAIN_MB)
+        counter = shd.comm_counter()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with counter:
+            state, m = step(state, b0)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t
+        peak_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        differ = {}
+        for kind, leaves in (("params", tree_flatten(state["params"])[0]), ("m", tree_flatten(state["opt"]["m"])[0]),
+                             ("v", tree_flatten(state["opt"]["v"])[0])):
+            assert len(leaves) == len(first[kind]), kind
+            differ[kind] = sum(not torch.equal(x.to_local(), h.to(dev)) for x, h in zip(leaves, first[kind]))
+        step_count = int(state["opt"]["step"].to_local())
+        del state, b0
+    torch.cuda.empty_cache()
+    checks = {
+        "backend_nccl": {"backend": backend, "ok": backend == "nccl"},
+        "loss_bitwise": {"pinned": loss, "unpinned": first["loss"], "ok": loss == first["loss"]},
+        "grad_norm_bitwise": {"pinned": gnorm, "unpinned": first["grad_norm"], "ok": gnorm == first["grad_norm"]},
+        "state_bitwise": {"leaves_differing": differ, "leaves": len(first["params"]),
+                          "ok": not any(differ.values()) and step_count == 1},
+    }
+    emit({"phase": "train-nccl1", "arch": cfg.name, "layers": cfg.n_layers, "mesh": [1, 1], "microbatches": TRAIN_MB,
+          "step_s": step_s, "peak_device_gb": peak_gb, "collectives": counter.by_kind, "checks": checks,
+          "kernel_launches": _no_kernel_launches(build, "train-nccl1"), "nvidia_smi": _smi_line(),
+          "seconds": time.perf_counter() - t_phase})
+    failed = [k for k, v in checks.items() if not v["ok"]]
+    assert not failed, f"train-nccl1: checks failed: {failed}"
+
+
+def dryrun_start(out_dir: str) -> list:
+    """``python -m repro_torch.launch.dryrun`` (DRYRUN_ARGV) for each mesh in
+    a process of its own (a fake process group must not meet this one's),
+    started so that they run on the host while the card runs other
+    phases."""
+    import os
+
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"), OMP_NUM_THREADS="1")
+    # niced: the ranks of train-sharded beside them move their collectives through the host
+    return [subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", *DRYRUN_ARGV, "--mesh", m,
+                              "--out", out_dir], cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                             text=True, preexec_fn=lambda: os.nice(10)) for m in DRYRUN_MESHES]
+
+
+def dryrun_phase(torch, procs: list, out_dir: str, started: float) -> None:
+    """The dry run's records: per mesh the argument bytes (equal to
+    ``sharding.py``'s arithmetic of the state plus the batch's block),
+    rank 0's FLOPs and the collectives by kind; its wall from its start."""
+    from repro_torch.configs import ARCHS, SHAPES
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import production_mesh_shape
+    from repro_torch.training import optimizer, train_step as ts
+
+    t = time.perf_counter()
+    outs = []
+    for proc in procs:
+        out, err = proc.communicate(timeout=900)
+        if proc.returncode != 0:
+            raise AssertionError(f"dryrun: exit {proc.returncode}\n{out[-3000:]}{err[-3000:]}")
+        outs.append(out)
+    waited_s = time.perf_counter() - t
+    cfg, shape = ARCHS["glm4-9b"], SHAPES["train_4k"]
+    tcfg = ts.TrainConfig(opt=optimizer.OptConfig(kind=cfg.optimizer))
+    assert dryrun.microbatches_for(cfg, shape) == 1
+    for multi in (False, True):
+        sizes, names = production_mesh_shape(multi)
+        ms = shd.MeshShape(names, sizes)
+        dp = ms.size("pod") * ms.size("data")
+        want = _state_bytes(cfg, tcfg, ms) + 2 * (shape.global_batch // dp) * shape.seq_len * 4
+        name = "pod2x16x16" if multi else "pod16x16"
+        rec = json.loads((Path(out_dir) / f"glm4-9b__train_4k__{name}.json").read_text())
+        assert rec["status"] == "ok", rec.get("error")
+        assert rec["memory"]["argument_bytes"] == want, (rec["memory"]["argument_bytes"], want)
+        assert rec["cost"]["flops"] > 0 and {"all-gather", "all-reduce"} <= set(rec["collectives"])
+        emit({"phase": "dryrun", "mesh": name, "argument_bytes": rec["memory"]["argument_bytes"],
+              "argument_bytes_by_specs": want, "flops": rec["cost"]["flops"], "collectives": rec["collectives"],
+              "collective_bytes_per_device": rec["collective_bytes_per_device"], "run_s": rec["run_s"],
+              "microbatches": rec["microbatches"], "not_measured": rec["not_measured"]})
+    emit({"phase": "dryrun-cli", "argv": [[*DRYRUN_ARGV, "--mesh", m, "--out", "<tmp>"] for m in DRYRUN_MESHES],
+          "exit": [p.returncode for p in procs], "out": [o.splitlines()[-2:] for o in outs],
+          "wall_s_since_start": time.perf_counter() - started, "waited_s": waited_s})
 
 
 # ----------------------------------------------------------- paged phase
@@ -3624,13 +3925,28 @@ def main() -> int:
     kv_dryrun_phase(torch, dev)
     serve_cli_phase(torch, dev)
 
+    import tempfile
+
     held_tensors(torch, "before paged")
     paged_phase(torch, dev, kernels)
     lm_phase(torch, dev)
     lm_parity(torch, dev)
-    train_phase(torch, dev)
+    first = train_phase(torch, dev)
     train_parity(torch, dev)
     train_cli_phase(torch, dev)
+    with tempfile.TemporaryDirectory(prefix="chip_dryrun_") as dryrun_dir:
+        dry = dryrun_start(dryrun_dir)  # on two host cores while the card runs the sharded training phases
+        dry_started = time.perf_counter()
+        try:
+            train_sharded_phase(torch, dev)
+            train_nccl1_phase(torch, dev, first)
+            del first
+            dryrun_phase(torch, dry, dryrun_dir, dry_started)
+        finally:
+            for p in dry:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
     examples_phase(torch, dev)
 
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})

@@ -31,6 +31,11 @@ Properties (as the reference's):
 
 dtypes numpy cannot hold (bf16, the fp8 types) are stored as a same-width
 unsigned-integer view, with the true dtype's name in META.
+
+A sharded state (DTensor leaves, ``distributed/sharding.py``) is saved
+whole: every rank all-gathers each leaf and rank 0 writes, so the files are
+the one-device layout.  ``restore`` places a leaf whose ``shardings`` entry
+is a ``sharding.Layout`` as a DTensor: each rank keeps its block.
 """
 
 from __future__ import annotations
@@ -112,6 +117,8 @@ def _host_copy(x) -> Tuple[np.ndarray, str]:
     """A host numpy copy of one leaf and its true dtype's name; a dtype
     numpy cannot hold is copied as its same-width unsigned view."""
     if isinstance(x, torch.Tensor):
+        if hasattr(x, "full_tensor"):  # a DTensor: gathered whole
+            x = x.full_tensor()
         t = x.detach().to("cpu", copy=True)
         if t.dtype in _EXOTIC:
             size = t.element_size()
@@ -138,6 +145,15 @@ def _load_leaf(path: Path, dtype: str):
     return a
 
 
+def _sharded_follower(leaves) -> bool:
+    """A rank other than 0 saving a sharded state (it gathered, rank 0
+    writes)."""
+    import torch.distributed as dist
+
+    return (any(hasattr(x, "full_tensor") for x in leaves) and dist.is_initialized()
+            and dist.get_rank() != 0)
+
+
 class CheckpointManager:
     def __init__(self, directory: str | Path, keep: int = 3):
         self.dir = Path(directory)
@@ -152,6 +168,8 @@ class CheckpointManager:
         self.wait()
         leaves, treedef_str = tree_flatten(state)
         copies = [_host_copy(x) for x in leaves]  # consistent cut, before the thread
+        if _sharded_follower(leaves):
+            return  # rank 0 writes the gathered state
         host = [a for a, _ in copies]
         dtypes = [name for _, name in copies]
 
@@ -210,6 +228,8 @@ class CheckpointManager:
         an array leaf comes back as a numpy array of its dtype."""
         d = self.dir / f"step_{step:09d}"
         meta = json.loads((d / "META.json").read_text())
+        from ..distributed import sharding as shd
+
         leaves_like, _ = tree_flatten(like)
         assert meta["n_leaves"] == len(leaves_like), (
             f"checkpoint has {meta['n_leaves']} leaves, target {len(leaves_like)}"
@@ -221,6 +241,11 @@ class CheckpointManager:
             assert list(a.shape) == list(lk.shape), (i, a.shape, lk.shape)
             if isinstance(lk, torch.Tensor):
                 t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.array(a, order="C"))
+                if isinstance(dev, shd.Layout):  # this rank's block, as a DTensor
+                    block = t[shd.shard_slices(t.shape, dev)]
+                    block = block.to(device=torch.device(dev.mesh.device_type), dtype=lk.dtype).contiguous()
+                    out.append(shd.dtensor(block, dev, t.shape))
+                    continue
                 out.append(t.to(device=lk.device if dev is None else dev, dtype=lk.dtype))
             else:
                 out.append(np.asarray(a).astype(np.asarray(lk).dtype))

@@ -24,13 +24,14 @@ on both sides.
 
 ``PERF_FLAGS`` / ``set_perf_flags`` carry the reference's flags that
 change what is computed: ``paired_causal`` (full causal attention takes the
-paired schedule), ``block_kv`` (the KV block of ``blockwise_attention``)
-and ``moe_decode_gather`` (``models/moe.py``).  Any other name is refused:
-the reference's sharding hints pin GSPMD layouts, and ``moe_bf16_combine``
-shrinks a GSPMD all-reduce (see ``models/moe.py``); they come with the
-port's sharding.  ``UNROLL_ATTN`` has no twin: it only lets XLA's cost
-analysis, which counts a loop body once, see every block; PyTorch runs and
-counts every block anyway.
+paired schedule), ``block_kv`` (the KV block of ``blockwise_attention``),
+``moe_decode_gather`` and ``moe_bf16_combine`` (``models/moe.py``).  The
+reference's layout hints (``LAYOUT_FLAGS``) are refused by name: each is a
+``with_sharding_constraint`` that changes no value and pins an activation
+layout only a tensor-parallel program has, and the port's sharded step is
+data parallel (``distributed/sharding.py``).  ``UNROLL_ATTN`` has no twin:
+it only lets XLA's cost analysis, which counts a loop body once, see every
+block; PyTorch runs and counts every block anyway.
 
 The masked scan stays the default, as in the reference, though the paired
 schedule does fewer block steps: its output and query gradient are the
@@ -51,7 +52,10 @@ NEG_INF = -1e30
 _DRAW = 1 << 26  # values drawn at a time by ``normal``
 
 # the reference's perf flags that change the computation (default off)
-PERF_FLAG_NAMES = ("paired_causal", "block_kv", "moe_decode_gather")
+PERF_FLAG_NAMES = ("paired_causal", "block_kv", "moe_decode_gather", "moe_bf16_combine")
+# the reference's GSPMD layout hints: refused (module docstring)
+LAYOUT_FLAGS = ("attn_q_shard", "attn_scores_shard", "decode_logits_shard", "moe_gathered_shard",
+                "moe_decode_local", "moe_y_shard", "attn_rs", "moe_rs")
 PERF_FLAGS: dict = {}
 
 
@@ -59,6 +63,12 @@ def set_perf_flags(**kw) -> None:
     """Clears the flags, then sets those of ``kw`` whose value is not
     ``None``.  A name outside ``PERF_FLAG_NAMES`` raises ``ValueError`` and
     leaves the flags as they were."""
+    layout = sorted(set(kw) & set(LAYOUT_FLAGS))
+    if layout:
+        raise ValueError(
+            f"layout flags {layout} are not ported: each pins a GSPMD activation layout of a tensor-parallel "
+            "program and changes no value; the port's sharded step is data parallel and has no such layout"
+        )
     unknown = sorted(set(kw) - set(PERF_FLAG_NAMES))
     if unknown:
         raise ValueError(f"unknown perf flags {unknown}: the port takes {list(PERF_FLAG_NAMES)}")
@@ -352,15 +362,17 @@ def swiglu(x, w_gate, w_up, w_down):
     return torch.einsum("bsf,fd->bsd", h, w_down)
 
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, mask=None) -> torch.Tensor:
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, mask=None, total=None) -> torch.Tensor:
     """Token-mean CE in f32: ``logsumexp - gold`` per token. logits (B,S,V),
     labels (B,S) int; ``mask`` (B,S) weights the tokens (the mean over its
-    sum, at least 1)."""
+    sum, at least 1).  ``total`` (a 0-d f32 tensor) replaces the count: the
+    (weighted) sum over it, one rounding, as a data-parallel rank divides
+    its share of a global mean."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     nll = logz - gold
     if mask is None:
-        return mean(nll)
+        return mean(nll) if total is None else nll.sum() / total
     mask = mask.float()
-    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return (nll * mask).sum() / (torch.clamp(mask.sum(), min=1.0) if total is None else total)

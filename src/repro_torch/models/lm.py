@@ -24,6 +24,17 @@ superblock), so only the groups' inputs stay saved; it changes no number.
 Each stacked parameter is unbound into its groups once, so a group's
 gradient lands in its slice of the stacked leaf's gradient.
 
+Under a mesh (``training/train_step.py`` with ``grad_shardings``) a
+parameter leaf may be a ``distributed.sharding.Sharded`` block: the
+embedding, the final norm and the head are gathered at the start, each
+superblock group's leaves inside the group's remat (freed after the group,
+gathered again in its recomputation), and autograd reduces each gradient
+back into its block.  Under ``sharding.batch_parallel`` with more than one
+batch rank, the MoE layer all-gathers its input over the batch axes and
+dispatches the global token set, as the reference's GSPMD program
+dispatches the whole microbatch; the loss divides the local token losses'
+sum by the global count.
+
 Everything runs on the tensors' device; ``init`` and ``init_cache`` take a
 ``device``, and ``device=None`` means the CUDA card (it raises without
 one).
@@ -38,9 +49,10 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
+from ..distributed.sharding import Sharded, batch_ranks, batch_rows, batch_sum, gather_batch, unshard, unshard_tree
 from . import mamba as mamba_mod
 from . import moe as moe_mod
-from .layers import blockwise_attention, cross_entropy, decode_attention, normal, rms_norm, rope, swiglu
+from .layers import PERF_FLAGS, blockwise_attention, cross_entropy, decode_attention, normal, rms_norm, rope, swiglu
 
 DTYPE = torch.bfloat16
 
@@ -125,10 +137,11 @@ def _stacked_init(cfg: ArchConfig, slot: int, groups: int, gen: torch.Generator,
 
 
 def _at(tree, g: int):
-    """Group ``g`` of a stacked tree (views, no copy)."""
+    """Group ``g`` of a stacked tree (views, no copy; a ``Sharded`` leaf's
+    group gathered)."""
     if isinstance(tree, dict):
         return {k: _at(v, g) for k, v in tree.items()}
-    return tree[g]
+    return unshard(tree.group(g)) if isinstance(tree, Sharded) else tree[g]
 
 
 def _groups(tree, n: int):
@@ -137,6 +150,8 @@ def _groups(tree, n: int):
     if isinstance(tree, dict):
         parts = {k: _groups(v, n) for k, v in tree.items()}
         return [{k: parts[k][g] for k in tree} for g in range(n)]
+    if isinstance(tree, Sharded):  # gathered where the group runs
+        return [tree.group(g) for g in range(n)]
     return list(torch.unbind(tree, dim=0))
 
 
@@ -219,6 +234,8 @@ class _Gather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (ids,) = ctx.saved_tensors
+        if g.device.type == "meta":  # shapes only (the dry run): ``unique`` has none to give
+            return g.new_empty(ctx.table_shape, dtype=ctx.table_dtype), None
         rows, inv = torch.unique(ids.reshape(-1), return_inverse=True)
         acc = torch.zeros((rows.numel(), *g.shape[ids.dim():]), dtype=torch.float32, device=g.device)
         acc.index_put_((inv,), g.reshape(-1, *acc.shape[1:]).float(), accumulate=True)
@@ -286,9 +303,13 @@ def _mlp_layer(cfg, slot, p, x):
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     if mk == "dense":
         return x + swiglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"], p["mlp"]["w_down"]), zero
+    # the global dispatch: every batch rank's tokens, this rank's rows kept
     out, aux = moe_mod.apply(
-        moe_mod.MoEParams(**p["moe"]), h, top_k=cfg.experts_per_token, capacity_factor=cfg.capacity_factor
+        moe_mod.MoEParams(**p["moe"]), gather_batch(h), top_k=cfg.experts_per_token,
+        capacity_factor=cfg.capacity_factor,
+        combine_dtype=torch.bfloat16 if PERF_FLAGS.get("moe_bf16_combine") else torch.float32,
     )
+    out = batch_rows(out)
     if cfg.shared_expert:
         out = out + swiglu(h, p["shared_mlp"]["w_gate"], p["shared_mlp"]["w_up"], p["shared_mlp"]["w_down"])
     return x + out, aux
@@ -304,7 +325,7 @@ def forward(
     """Returns (logits, aux_loss, cache_or_None)."""
     if (tokens is None) == (embeds is None):
         raise ValueError("pass exactly one of tokens and embeds")
-    x = _embed(params["embed"], tokens) if embeds is None else embeds.to(DTYPE)
+    x = _embed(unshard(params["embed"]), tokens) if embeds is None else embeds.to(DTYPE)
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :].repeat(B, 1)
     period = cfg.superblock
@@ -312,6 +333,7 @@ def forward(
     groups = params["blocks"][0]["ln1"].shape[0]
 
     def superblock(x, aux, slot_params):
+        slot_params = [unshard_tree(p) for p in slot_params]  # a mesh's blocks, gathered here
         caches = []
         for slot in range(period):
             p = slot_params[slot]
@@ -336,8 +358,8 @@ def forward(
             x, aux, cs = superblock(x, aux, slot_params)
         for slot, c in enumerate(cs):
             caches[slot].append(c)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = torch.einsum("bsd,dv->bsv", x, params["lm_head"])
+    x = rms_norm(x, unshard(params["final_norm"]), cfg.norm_eps)
+    logits = torch.einsum("bsd,dv->bsv", x, unshard(params["lm_head"]))
     cache = {"slots": [_stack(c) for c in caches]} if want_cache else None
     return logits, aux, cache
 
@@ -346,14 +368,24 @@ def loss_fn(cfg: ArchConfig, params: Dict[str, Any], batch) -> Tuple[torch.Tenso
     """Causal LM loss (decoders: logits at ``t`` against labels at ``t+1``)
     or masked-unit prediction (encoders: labels at ``t``).  ``batch`` holds
     ``labels`` and ``tokens`` or ``embeds``.  Returns ``(ce + 0.01 * aux,
-    {"ce", "aux"})``."""
+    {"ce", "aux"})``.
+
+    Under ``sharding.batch_parallel`` over R > 1 ranks this rank's share:
+    ``ce`` is its token losses' sum over the global token count (the
+    all-reduced local counts) and the aux loss, which every rank computes
+    whole from the global dispatch, enters the total as ``aux / R``; the
+    ranks' totals and gradients sum to the global ones."""
     logits, aux, _ = forward(cfg, params, tokens=batch.get("tokens"), embeds=batch.get("embeds"), mode="train")
     labels = batch["labels"]
     if cfg.causal:
-        ce = cross_entropy(logits[:, :-1], labels[:, 1:])
-    else:
+        logits, labels = logits[:, :-1], labels[:, 1:]
+    R = batch_ranks()
+    if R == 1:
         ce = cross_entropy(logits, labels)
-    return ce + 0.01 * aux, {"ce": ce, "aux": aux}
+        return ce + 0.01 * aux, {"ce": ce, "aux": aux}
+    total = batch_sum(torch.full((), float(labels.numel()), dtype=torch.float32, device=labels.device))
+    ce = cross_entropy(logits, labels, total=total)
+    return ce + 0.01 * (aux / R), {"ce": ce, "aux": aux}
 
 
 # ---------------------------------------------------------------------------
@@ -380,7 +412,7 @@ def decode_step(
     """One autoregressive step.  Returns (logits (B,V), new cache); the
     cache passed in is left as it was."""
     pos = int(pos)
-    x = _embed(params["embed"], token)[:, None, :] if token.dim() == 1 else token[:, None, :].to(DTYPE)
+    x = _embed(unshard(params["embed"]), token)[:, None, :] if token.dim() == 1 else token[:, None, :].to(DTYPE)
     B = x.shape[0]
     hd = cfg.head_dim_
     period = cfg.superblock
@@ -423,6 +455,6 @@ def decode_step(
                 nc["h"][g] = st.h
                 nc["conv"][g] = st.conv
             x, _ = _mlp_layer(cfg, slot, p, x)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = torch.einsum("bsd,dv->bsv", x, params["lm_head"])[:, 0]
+    x = rms_norm(x, unshard(params["final_norm"]), cfg.norm_eps)
+    logits = torch.einsum("bsd,dv->bsv", x, unshard(params["lm_head"]))[:, 0]
     return logits, {"slots": new_slots}

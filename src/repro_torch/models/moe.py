@@ -23,11 +23,16 @@ the routed experts' weights and runs a per-token SwiGLU.  Its combine adds
 is free on the card: with ``top_k <= 2``, as in every config, the sum is
 exact in any order.
 
-The reference's ``moe_bf16_combine`` (and ``apply``'s ``combine_dtype``)
-is refused here, with the sharding hints.  It halves the bytes of GSPMD's
-all-reduce over an F-sharded expert contraction, which one card does not
-have, and with ``top_k <= 2`` it changes no number: the experts' outputs
-are bf16 already, and ``0 + a + b`` rounds to bf16 once either way.
+``combine_dtype`` (the ``moe_bf16_combine`` flag, through ``models/lm.py``)
+is the reference's: with bf16 the weighted rows are added into bf16 token
+rows, rounding after each add in dispatch order, as XLA's scatter adds
+them.  ``index_add_`` does not: on the CPU it sums a row's bf16 updates in
+f32 and rounds once, on the card its atomic adds come in any order.  So the
+combine runs ``top_k`` passes, pass ``j`` adding each token's ``j``-th
+entry in dispatch order (the others add exact zeros), one rounding an add
+in the reference's order on every device.  The reference's layout hints on
+the MoE activations (``moe_gathered_shard``, ``moe_decode_local``,
+``moe_y_shard``) are refused by ``layers.set_perf_flags``.
 """
 
 from __future__ import annotations
@@ -153,8 +158,11 @@ def apply(
     *,
     top_k: int,
     capacity_factor: float = 1.25,
+    combine_dtype=torch.float32,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (output (B,S,D), aux load-balance loss scalar)."""
+    """Returns (output (B,S,D), aux load-balance loss scalar).
+    ``combine_dtype``: the dtype the weighted expert rows are summed in
+    (f32, or bf16 in the reference's dispatch order: module docstring)."""
     B, S, D = x.shape
     E = p.router.shape[1]
     T = B * S
@@ -178,6 +186,34 @@ def apply(
 
     # ---- weighted combine ---------------------------------------------------
     contrib = y[torch.clamp(r.slot, max=EC - 1)] * r.gate_s[:, None].to(x.dtype)
-    out = torch.zeros((T + 1, D), dtype=torch.float32, device=x.device)
-    out.index_add_(0, torch.where(r.keep, r.tok_s, T), contrib.float())
-    return out[:T].to(x.dtype).reshape(B, S, D), r.aux
+    out = combine(contrib, torch.where(r.keep, r.tok_s, T), T, top_k, combine_dtype)
+    return out.to(x.dtype).reshape(B, S, D), r.aux
+
+
+def combine(contrib: torch.Tensor, tgt: torch.Tensor, T: int, top_k: int, dtype=torch.float32) -> torch.Tensor:
+    """The (T, D) sum of the rows ``contrib`` (TK, D), in dispatch order,
+    into their target rows ``tgt`` (``T``: dropped), in ``dtype``: f32 in
+    one ``index_add_``, another dtype in ``top_k`` ordered passes (module
+    docstring)."""
+    out = torch.zeros((T + 1, contrib.shape[1]), dtype=dtype, device=contrib.device)
+    if dtype == torch.float32:
+        out.index_add_(0, tgt, contrib.float())
+        return out[:T]
+    occ = _occurrence(tgt)
+    zero = torch.zeros((), dtype=dtype, device=contrib.device)
+    rows = contrib.to(dtype)
+    for j in range(top_k):
+        out.index_add_(0, tgt, torch.where((occ == j)[:, None], rows, zero))
+    return out[:T]
+
+
+def _occurrence(tgt: torch.Tensor) -> torch.Tensor:
+    """Each entry's rank among the entries of the same target row, in entry
+    order (the rank-within-expert of ``dispatch``, by row)."""
+    order = torch.sort(tgt, stable=True).indices
+    t = tgt[order]
+    pos = torch.arange(t.numel(), device=t.device)
+    is_first = torch.ones_like(t, dtype=torch.bool)
+    is_first[1:] = t[1:] != t[:-1]
+    rank = pos - torch.cummax(torch.where(is_first, pos, 0), dim=0).values
+    return torch.empty_like(rank).scatter_(0, order, rank)

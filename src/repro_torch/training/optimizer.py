@@ -18,6 +18,17 @@ parameter before its step and rounds differently).
 The step is done in place: the params and state passed in are donated (the
 reference jits its step with ``donate_argnums``), their tensors take the new
 values and are returned.
+
+Under a mesh (params, grads and state DTensors in the placements of
+``distributed.sharding``) the update runs on the blocks.  AdamW is
+elementwise: it runs in each moment's placement (ZeRO: the gradient and
+parameter blocks sliced to it, the new parameter block all-gathered back
+where the parameter is not split like its moments).  Adafactor runs in the
+parameter's placement; its factored row and column means, the mean of
+``vr`` and the update's RMS are all-reduced where a reduced dimension is
+split.  The global gradient norm is the all-reduced f32 sum of squares of
+each leaf (each block counted once), summed over the leaves in order.  On
+a mesh of one rank every number is the unsharded update's, bit for bit.
 """
 
 from __future__ import annotations
@@ -95,13 +106,16 @@ def _adamw_leaf(cfg: OptConfig, p, g, m, v, scale, bc1, bc2) -> None:
     p.copy_(pf - cfg.lr * delta)
 
 
-def _adafactor_leaf(cfg: OptConfig, p, g, vr, vc, scale, decay) -> None:
+def _adafactor_leaf(cfg: OptConfig, p, g, vr, vc, scale, decay, means=None, factored=None) -> None:
+    # ``means(x, what, dim, keepdim)``: a mean over a sharded block (what:
+    # "p" a tensor in the parameter's placement, "vr" one in vr's)
+    means = means or (lambda x, what, dim=None, keepdim=False: mean(x, dim=dim, keepdim=keepdim))
     g = g.float() * scale
     g2 = g * g + 1e-30
-    if _factored(cfg, p):
-        vr.mul_(decay).add_((1 - decay) * mean(g2, dim=-1))
-        vc.mul_(decay).add_((1 - decay) * mean(g2, dim=-2))
-        r = vr / torch.clamp(mean(vr, dim=-1, keepdim=True), min=1e-30)
+    if _factored(cfg, p) if factored is None else factored:
+        vr.mul_(decay).add_((1 - decay) * means(g2, "p", dim=-1))
+        vc.mul_(decay).add_((1 - decay) * means(g2, "p", dim=-2))
+        r = vr / torch.clamp(means(vr, "vr", dim=-1, keepdim=True), min=1e-30)
         vhat = r[..., None] * vc[..., None, :]
     else:
         vr.mul_(decay).add_((1 - decay) * g2)
@@ -110,7 +124,7 @@ def _adafactor_leaf(cfg: OptConfig, p, g, vr, vc, scale, decay) -> None:
     upd = g / torch.sqrt(vhat + cfg.eps)
     del g, vhat
     # update clipping (RMS <= 1): adafactor's stabiliser
-    rms = torch.sqrt(mean(torch.square(upd)) + 1e-30)
+    rms = torch.sqrt(means(torch.square(upd), "p") + 1e-30)
     upd.div_(torch.clamp(rms, min=1.0))
     pf = p.float()
     p.copy_(pf - cfg.lr * upd - cfg.lr * cfg.weight_decay * pf)
@@ -128,6 +142,10 @@ def clip_scale(cfg: OptConfig, gnorm: torch.Tensor) -> torch.Tensor:
 def update(cfg: OptConfig, params, grads, state) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
     """One optimizer step, in place (see the module docstring).  Returns
     (params, state, {"grad_norm"})."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(tree_flatten(params)[0][0], DTensor):
+        return _update_sharded(cfg, params, grads, state)
     gnorm = _global_norm(grads)
     scale = clip_scale(cfg, gnorm)
     step = state["step"] + 1
@@ -146,4 +164,111 @@ def update(cfg: OptConfig, params, grads, state) -> Tuple[Any, Dict[str, Any], D
     else:
         raise ValueError(cfg.kind)
     state["step"] = step
+    return params, state, {"grad_norm": gnorm}
+
+
+# ------------------------------------------------------------- on a mesh
+
+
+def _work(x, placements) -> torch.Tensor:
+    """The block of the DTensor ``x`` in ``placements`` (its own block, the
+    same storage, where they are its own)."""
+    if tuple(x.placements) == tuple(placements):
+        return x.to_local()
+    return x.redistribute(x.device_mesh, placements).to_local()
+
+
+def _put_back(x, block: torch.Tensor, placements) -> None:
+    """Write ``block``, ``x``'s values in ``placements``, into ``x``."""
+    if tuple(x.placements) == tuple(placements):
+        return
+    from ..distributed import sharding as shd
+
+    full = shd.dtensor(block, shd.Layout(x.device_mesh, placements), x.shape)
+    x.to_local().copy_(full.redistribute(x.device_mesh, x.placements).to_local())
+
+
+def _sharded_norm(grads) -> torch.Tensor:
+    """``_global_norm`` of DTensor gradients: each leaf's f32 sum of squares
+    all-reduced over the mesh (its replicas but one add zero), then summed
+    over the leaves in order."""
+    from ..distributed import sharding as shd
+
+    leaves = tree_flatten(grads)[0]
+    sums = []
+    for g in leaves:
+        s = torch.sum(torch.square(g.to_local().float()))
+        sums.append(s if shd.owns(shd.Layout(g.device_mesh, g.placements)) else torch.zeros_like(s))
+    mesh = leaves[0].device_mesh
+    total = shd.all_reduce(torch.stack(sums), mesh, range(mesh.ndim))
+    return torch.sqrt(sum(total.unbind(0)))
+
+
+def _sharded_means(p, vr_placements):
+    """``_adafactor_leaf``'s ``means`` for the blocks of ``p`` (and of a
+    ``vr`` in ``vr_placements``): a mean over a dim no mesh dimension splits
+    is the unsharded one; over a split one, the local sum all-reduced over
+    the dims that split it, divided by the whole count (one rounding)."""
+    from ..distributed import sharding as shd
+    from ..models.layers import count
+
+    mesh = p.device_mesh
+    lay = {"p": shd.Layout(mesh, p.placements), "vr": shd.Layout(mesh, vr_placements)}
+    full = {"p": tuple(p.shape), "vr": tuple(p.shape[:-1])}
+
+    def means(x, what, dim=None, keepdim=False):
+        nd = len(full[what])
+        dims = list(range(nd)) if dim is None else [dim % nd]
+        split = shd.shard_dims(lay[what], dims)
+        if not split:
+            return mean(x, dim=dim, keepdim=keepdim)
+        s = torch.sum(x) if dim is None else torch.sum(x, dim=dim, keepdim=keepdim)
+        s = shd.all_reduce(s, mesh, split)
+        n = 1
+        for d in dims:
+            n *= full[what][d]
+        return s / count(n, s)
+
+    return means
+
+
+def _update_sharded(cfg: OptConfig, params, grads, state):
+    from torch.distributed.tensor import Replicate, Shard
+
+    from ..distributed import sharding as shd
+
+    gnorm = _sharded_norm(grads)
+    scale = clip_scale(cfg, gnorm)
+    step_dt = state["step"]
+    step = step_dt.to_local() + 1
+    stepf = step.float()
+    p_l, g_l = tree_flatten(params)[0], tree_flatten(grads)[0]
+
+    if cfg.kind == "adamw":
+        bc1 = 1.0 - torch.tensor(cfg.b1, dtype=torch.float32, device=stepf.device) ** stepf
+        bc2 = 1.0 - torch.tensor(cfg.b2, dtype=torch.float32, device=stepf.device) ** stepf
+        for p, g, m, v in zip(p_l, g_l, tree_flatten(state["m"])[0], tree_flatten(state["v"])[0]):
+            pw = _work(p, m.placements)
+            _adamw_leaf(cfg, pw, _work(g, m.placements), _work(m, m.placements), _work(v, m.placements),
+                        scale, bc1, bc2)
+            _put_back(p, pw, m.placements)
+    elif cfg.kind == "adafactor":
+        decay = 1.0 - stepf**-0.8
+        for p, g, vr, vc in zip(p_l, g_l, tree_flatten(state["vr"])[0], tree_flatten(state["vc"])[0]):
+            nd = p.dim()
+            pp = tuple(p.placements)
+            if _factored(cfg, p):  # vr drops the last dim, vc the one before
+                vr_pl = tuple(Replicate() if x.is_shard() and x.dim == nd - 1 else x for x in pp)
+                vc_pl = tuple(Replicate() if x.is_shard() and x.dim == nd - 2
+                              else Shard(nd - 2) if x.is_shard() and x.dim == nd - 1 else x for x in pp)
+            else:
+                vr_pl, vc_pl = pp, tuple(vc.placements)
+            vrw, vcw = _work(vr, vr_pl), _work(vc, vc_pl)
+            _adafactor_leaf(cfg, p.to_local(), _work(g, pp), vrw, vcw, scale, decay,
+                            means=_sharded_means(p, vr_pl), factored=_factored(cfg, p))
+            _put_back(vr, vrw, vr_pl)
+            _put_back(vc, vcw, vc_pl)
+    else:
+        raise ValueError(cfg.kind)
+    state["step"] = shd.dtensor(step, shd.Layout(step_dt.device_mesh, step_dt.placements), ())
     return params, state, {"grad_norm": gnorm}

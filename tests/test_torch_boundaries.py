@@ -46,6 +46,7 @@ def test_importing_the_port_loads_no_jax():
         "repro_torch.launch.serve, repro_torch.distributed.kvshard, repro_torch.distributed.rangeshard, "
         "repro_torch.distributed.snapshot, repro_torch.distributed.elastic, repro_torch.checkpoint.manager, "
         "repro_torch.launch.mesh, repro_torch.launch.kv_dryrun, repro_torch.launch.local_ranks, repro_torch.configs, "
+        "repro_torch.distributed.sharding, repro_torch.launch.dryrun, "
         "repro_torch.models.layers, repro_torch.models.moe, repro_torch.models.mamba, repro_torch.models.lm, "
         "repro_torch.models.carry, repro_torch.device, repro_torch.data.pipeline, repro_torch.training.optimizer, "
         "repro_torch.training.compress, repro_torch.training.train_step, repro_torch.launch.train, "

@@ -165,10 +165,16 @@ def test_perf_flags_do_not_leak():
 
 @pytest.mark.parametrize("name", SHARDING_FLAGS + ["moe_bf16_combine", "unroll_attn", "paired"])
 def test_unknown_and_sharding_flags_raise(name):
-    """The reference's sharding hints and ``moe_bf16_combine`` (they come
-    with the port's sharding) and unknown names are refused, even beside a known flag, and leave the
-    flags as they were: a flag is never taken and ignored."""
+    """The reference's sharding hints (by design: they pin layouts of a
+    tensor-parallel program) and unknown names are refused, even beside a
+    known flag, and leave the flags as they were: a flag is never taken and
+    ignored.  ``moe_bf16_combine``, refused until the port sharded, is now
+    taken like the other flags that change the computation."""
     layers.set_perf_flags(block_kv=256)
+    if name == "moe_bf16_combine":
+        layers.set_perf_flags(paired_causal=True, **{name: True})
+        assert layers.PERF_FLAGS == {"paired_causal": True, name: True}
+        return
     with pytest.raises(ValueError, match=name):
         layers.set_perf_flags(paired_causal=True, **{name: True})
     assert layers.PERF_FLAGS == {"block_kv": 256}
@@ -209,14 +215,12 @@ def test_moe_bf16_combine_close_to_f32():
     which holds the bf16 combine near the f32 one.  At top-2 the
     reference's bf16 combine gives its f32 logits bit for bit (the experts'
     outputs are bf16 already, and 0 + a + b rounds to bf16 once either
-    way), so the port, which refuses the flag until its sharding comes,
-    loses no number: its logits == the reference's with the flag on."""
+    way); the port's logits with the flag on == the reference's."""
     jc, tc = _configs("mixtral-8x7b")
     assert tc.experts_per_token <= 2
     jp, tp = _params(jc, 0)
     toks = np.random.default_rng(0).integers(0, tc.vocab_size, (2, 32)).astype(np.int32)
-    with pytest.raises(ValueError, match="moe_bf16_combine"):
-        layers.set_perf_flags(moe_bf16_combine=True)
+    layers.set_perf_flags(moe_bf16_combine=True)
     with torch.no_grad():
         got, _, _ = lm.forward(tc, tp, tokens=torch.from_numpy(toks))
     with jax.disable_jit():
