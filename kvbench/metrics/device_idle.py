@@ -1,0 +1,9 @@
+"""Per cent of the profiled slice in which no kernel, copy or memset ran on
+the card."""
+
+
+def read(rec):
+    t = rec["trace"]
+    if not t or t["busy_s"] <= 0 or t["window_s"] <= 0:
+        return None
+    return 100.0 * (1.0 - t["busy_s"] / t["window_s"])
