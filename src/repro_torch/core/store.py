@@ -47,6 +47,7 @@ from .hotcache import CacheConfig, CacheState
 from .keys import KEY_MAX, join_u64, limbs_to_tensor, split_u64
 from .lookup import IB_DEL, IB_PUT, InsertBuffers
 from .scancache import ScanCacheConfig, ScanCacheState
+from .spans import SpanTable, clock, recording, span
 from .tree import SEG_CAP, TreeConfig, TreeImage, build_image
 from .ttl import TTLTracker
 from ..device import resolve_device
@@ -175,8 +176,13 @@ class DPAStore:
         if not np.all(keys < KEY_MAX):
             raise ValueError("2^64-1 is a reserved sentinel")
         self.cfg = tree_cfg
-        self.image: TreeImage = build_image(keys, vals, tree_cfg)
-        bulk = stitch.bulk_load_batch(self.image)
+        # host spans of the build and of every wave (core/spans.py)
+        self.spans = SpanTable()
+        self._flush_spans = (self.spans.entry("kv/flush/plan"), self.spans.entry("kv/flush/apply"))
+        with span(self.spans, "kv/build/image"):
+            self.image: TreeImage = build_image(keys, vals, tree_cfg)
+        with span(self.spans, "kv/build/bulk_batch"):
+            bulk = stitch.bulk_load_batch(self.image)
         self.stats = StoreStats()
         self.stats.bulk_load_bytes = bulk.payload_bytes()
         self.stats.bulk_load_dpa_bytes = bulk.dpa_bytes()
@@ -189,7 +195,8 @@ class DPAStore:
                 bulk,
             )
         else:
-            self.tree = self.image.to_device(self.device)
+            with span(self.spans, "kv/build/to_device"):
+                self.tree = self.image.to_device(self.device)
         self.ib: InsertBuffers = lookup.make_insert_buffers(n_leaves, tree_cfg.ib_cap, self.device)
         self.cache_cfg = cache_cfg
         self.cache: Optional[CacheState] = (
@@ -221,6 +228,10 @@ class DPAStore:
     @property
     def depth(self) -> int:
         return self.image.depth
+
+    def span_totals(self) -> Dict[str, Tuple[int, int]]:
+        """The store's host spans: ``name -> (ns, calls)``."""
+        return self.spans.totals()
 
     def _limbs(self, keys_u64: np.ndarray):
         """u64 keys -> (khi, klo) int32-held limb tensors on the device."""
@@ -325,8 +336,8 @@ class DPAStore:
             raise ValueError("single-store GET has no routing epochs (epoch must be None)")
         keys_u64 = np.asarray(keys, dtype=np.uint64)
         n = keys_u64.size
-        khi, klo = self._limbs(keys_u64)
         if as_of is not None:
+            khi, klo = self._limbs(keys_u64)
             e = self.epochs.check_retained(as_of)
             vhi, vlo, found = lookup.get_batch_versioned(
                 self.tree,
@@ -343,38 +354,42 @@ class DPAStore:
             self._end_wave()
             return _GetWave(n=n, vhi=vhi, vlo=vlo, found=found, hits=None, expired=expired)
         use_cache = self.cache is not None
-        if use_cache:
-            tid = self._steer(khi, klo)
-            c_hit, c_vhi, c_vlo = ops.cache_probe(self.cache, tid, khi, klo, cfg=self.cache_cfg)
-        vhi, vlo, found = ops.get(
-            self.tree,
-            self.ib,
-            khi,
-            klo,
-            depth=self.depth,
-            eps_inner=self.cfg.eps_inner,
-            eps_leaf=self.cfg.eps_leaf,
-        )
-        hits = None
-        if use_cache:
-            out_vhi = torch.where(c_hit, c_vhi, vhi)
-            out_vlo = torch.where(c_hit, c_vlo, vlo)
-            out_found = c_hit | found
-            self.cache = hotcache.admit(
-                self.cache,
-                tid,
+        with span(self.spans, "kv/get/build"):
+            khi, klo = self._limbs(keys_u64)
+            if use_cache:
+                tid = self._steer(khi, klo)
+        with span(self.spans, "kv/get/launch"):
+            if use_cache:
+                c_hit, c_vhi, c_vlo = ops.cache_probe(self.cache, tid, khi, klo, cfg=self.cache_cfg)
+            vhi, vlo, found = ops.get(
+                self.tree,
+                self.ib,
                 khi,
                 klo,
-                vhi,
-                vlo,
-                found & ~c_hit,
-                cfg=self.cache_cfg,
-                wave=self.stats.waves & 0xFFFFFFFF,
+                depth=self.depth,
+                eps_inner=self.cfg.eps_inner,
+                eps_leaf=self.cfg.eps_leaf,
             )
-            hits = c_hit
-            self.stats.cache_probes += n
-        else:
-            out_vhi, out_vlo, out_found = vhi, vlo, found
+            hits = None
+            if use_cache:
+                out_vhi = torch.where(c_hit, c_vhi, vhi)
+                out_vlo = torch.where(c_hit, c_vlo, vlo)
+                out_found = c_hit | found
+                self.cache = hotcache.admit(
+                    self.cache,
+                    tid,
+                    khi,
+                    klo,
+                    vhi,
+                    vlo,
+                    found & ~c_hit,
+                    cfg=self.cache_cfg,
+                    wave=self.stats.waves & 0xFFFFFFFF,
+                )
+                hits = c_hit
+                self.stats.cache_probes += n
+            else:
+                out_vhi, out_vlo, out_found = vhi, vlo, found
         self.stats.gets += n
         expired = self.ttl.is_expired_np(keys_u64) if self.ttl else None
         self._end_wave()
@@ -382,10 +397,11 @@ class DPAStore:
 
     def get_finalize(self, w: _GetWave) -> Tuple[np.ndarray, np.ndarray]:
         """Drain half of GET: blocking gather + host epilogue."""
-        if w.hits is not None:
-            self.stats.cache_hits += int(w.hits.sum())
-        vals = join_u64(torch.stack([w.vhi, w.vlo], dim=-1).cpu().numpy())
-        found = w.found.cpu().numpy()
+        with span(self.spans, "kv/get/copy"):
+            if w.hits is not None:
+                self.stats.cache_hits += int(w.hits.sum())
+            vals = join_u64(torch.stack([w.vhi, w.vlo], dim=-1).cpu().numpy())
+            found = w.found.cpu().numpy()
         if w.expired is not None:
             # TTL: a key past its deadline reads as absent (the sweep
             # deletes it physically later)
@@ -457,19 +473,20 @@ class DPAStore:
         ``ib.count``.  Returns the per-leaf append counts, or ``None`` when a
         touched buffer could reach the cap: the caller then takes the serial
         path, so stitch cycles land at the serial op-stream points."""
-        if self._ib_shadow is None:
-            self._ib_shadow = self._ib_counts().copy()
-        leaves = np.fromiter(
-            (self.image.find_leaf(k)[0] for k in keys_u64), dtype=np.int64, count=keys_u64.size
-        )
-        adds = np.zeros_like(self._ib_shadow)
-        np.add.at(adds, leaves, 1)
-        touched = np.unique(leaves)
-        # strict <: the wave must also leave every buffer BELOW the cap,
-        # else the serial path's post-wave _process_full_leaves would stitch
-        if np.any(self._ib_shadow[touched] + adds[touched] >= self.cfg.ib_cap):
-            return None
-        return adds
+        with span(self.spans, "kv/write/proof"):
+            if self._ib_shadow is None:
+                self._ib_shadow = self._ib_counts().copy()
+            leaves = np.fromiter(
+                (self.image.find_leaf(k)[0] for k in keys_u64), dtype=np.int64, count=keys_u64.size
+            )
+            adds = np.zeros_like(self._ib_shadow)
+            np.add.at(adds, leaves, 1)
+            touched = np.unique(leaves)
+            # strict <: the wave must also leave every buffer BELOW the cap,
+            # else the serial path's post-wave _process_full_leaves would stitch
+            if np.any(self._ib_shadow[touched] + adds[touched] >= self.cfg.ib_cap):
+                return None
+            return adds
 
     def write_issue(self, op: str, keys, vals=None) -> Optional[_WriteWave]:
         """Issue half of PUT/DELETE on the proven-safe fast path only.
@@ -487,7 +504,8 @@ class DPAStore:
         if adds is None:
             return None
         vals_u64 = np.zeros_like(keys_u64) if vals is None else np.asarray(vals, dtype=np.uint64)
-        status = self._append(keys_u64, vals_u64, IB_PUT if op == "put" else IB_DEL)
+        with span(self.spans, "kv/write/fast"):
+            status = self._append(keys_u64, vals_u64, IB_PUT if op == "put" else IB_DEL)
         self._ib_shadow += adds  # exact: every lane proven to land
         if op == "put":
             self.stats.puts += n
@@ -759,7 +777,8 @@ class DPAStore:
             )
             self._end_wave()
             return w
-        start = self._scan_start(khi, klo, resume)
+        with span(self.spans, "kv/range/start"):
+            start = self._scan_start(khi, klo, resume)
         w.rk, w.rv, w.valid, w.trunc, w.cursor, w.rounds = ops.range_scan_loop(
             self.tree,
             self.ib,
@@ -773,6 +792,7 @@ class DPAStore:
             start_leaf=start,
             ub_hi=ub_hi,
             ub_lo=ub_lo,
+            spans=self.spans,
         )
         self._end_wave()
         return w
@@ -794,22 +814,30 @@ class DPAStore:
                 stats=w.stats_out or {}, _arity=w.arity,
             )
         self.stats.range_rounds_in_mesh += max(w.rounds - 1, 0)
-        va = w.valid.cpu().numpy()
-        rc = va.sum(axis=1)
-        keys_out[:] = np.where(va, join_u64(w.rk.cpu().numpy()), 0)
-        vals_out[:] = np.where(va, join_u64(w.rv.cpu().numpy()), 0)
-        counts[:] = rc
-        trunc_out[:] = w.trunc.cpu().numpy()
-        cur_leaf_out[:] = w.cursor.leaf.cpu().numpy()
-        last_key = join_u64(torch.stack([w.cursor.khi, w.cursor.klo], dim=-1).cpu().numpy())
-        emitted = rc > 0
-        cur_key_out[emitted] = last_key[emitted]
-        trunc_out &= counts < limit
-        self.stats.range_truncated += int(trunc_out.sum())
+        with span(self.spans, "kv/range/copy"):
+            va = w.valid.cpu().numpy()
+            rk = w.rk.cpu().numpy()
+            rv = w.rv.cpu().numpy()
+            trunc = w.trunc.cpu().numpy()
+            cur_leaf = w.cursor.leaf.cpu().numpy()
+            cur_limbs = torch.stack([w.cursor.khi, w.cursor.klo], dim=-1).cpu().numpy()
+        with span(self.spans, "kv/range/epilogue"):
+            rc = va.sum(axis=1)
+            keys_out[:] = np.where(va, join_u64(rk), 0)
+            vals_out[:] = np.where(va, join_u64(rv), 0)
+            counts[:] = rc
+            trunc_out[:] = trunc
+            cur_leaf_out[:] = cur_leaf
+            last_key = join_u64(cur_limbs)
+            emitted = rc > 0
+            cur_key_out[emitted] = last_key[emitted]
+            trunc_out &= counts < limit
+            self.stats.range_truncated += int(trunc_out.sum())
         if not w.resumed and w.as_of is None:
             # only fresh client-entry scans admit their cursors: a resumed
             # call is an orchestration round whose cursors nobody probes
-            self._admit_cursor_anchors(trunc_out, cur_key_out)
+            with span(self.spans, "kv/range/admit"):
+                self._admit_cursor_anchors(trunc_out, cur_key_out)
         stats = {"rounds_in_mesh": max(w.rounds - 1, 0), "reissue": int(w.resumed)}
         if w.as_of is not None:
             stats["as_of"] = int(w.as_of)
@@ -1034,27 +1062,49 @@ class DPAStore:
             # leaves this transaction emits are born at the cycle it
             # completes as (end_cycle increments afterwards)
             self.image.version_cycle = self.epochs.cycle + 1
-            result = patch.plan_patch_batch(
-                self.image, chunk_leaves, chunk_entries,
-                headroom_ok=self._headroom_ok,
-                force_structural=self.retain_epochs > 0,
-            )
+            if recording():
+                with span(self.spans, "kv/flush/plan"):
+                    result = self._plan_batch(chunk_leaves, chunk_entries)
+                with span(self.spans, "kv/flush/apply"):
+                    self._apply_batch(result.batch)
+            else:
+                # a wave can run tens of cycles: bare clock reads into the
+                # spans' entries, without a ``with`` block
+                t0 = clock()
+                result = self._plan_batch(chunk_leaves, chunk_entries)
+                t1 = clock()
+                self._apply_batch(result.batch)
+                t2 = clock()
+                plan_e, apply_e = self._flush_spans
+                plan_e[0] += t1 - t0
+                plan_e[1] += 1
+                apply_e[0] += t2 - t1
+                apply_e[1] += 1
             pending = result.unplanned
-            self._apply_batch(result.batch)
             self.stats.patches_update += result.n_update
             self.stats.patches_structural += result.n_structural
             self.stats.new_leaves += len(result.new_leaves)
             self.stats.patched_leaves += len(result.results)
         return n_leaves
 
+    def _plan_batch(self, leaves, entries):
+        """Plan one patch transaction over ``leaves``' ``entries``."""
+        return patch.plan_patch_batch(
+            self.image, leaves, entries,
+            headroom_ok=self._headroom_ok,
+            force_structural=self.retain_epochs > 0,
+        )
+
     def _patch_leaf_entries(self, leaf: int, entries) -> None:
         """Per-leaf oracle path: one stitch transaction per patched leaf."""
         self.image.version_cycle = self.epochs.cycle + 1
-        result = patch.plan_patch(
-            self.image, leaf, entries, force_structural=self.retain_epochs > 0
-        )
+        with span(self.spans, "kv/flush/plan"):
+            result = patch.plan_patch(
+                self.image, leaf, entries, force_structural=self.retain_epochs > 0
+            )
+        with span(self.spans, "kv/flush/apply"):
+            self._apply_batch(result.batch)
         self.stats.patched_leaves += 1
-        self._apply_batch(result.batch)
         if result.kind == "update":
             self.stats.patches_update += 1
         else:

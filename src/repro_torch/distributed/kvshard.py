@@ -73,6 +73,7 @@ from ..core.epoch import EpochRetiredError
 from ..core.keys import KEY_MAX, limb_hash, limb_hash_np, u32
 from ..core.lookup import InsertBuffers
 from ..core.scancache import ScanCacheConfig
+from ..core.spans import SpanTable, span, sum_totals
 from ..core.store import STATUS_OK, DPAStore
 from ..core.tree import DeviceTree, TreeConfig
 from ..core.ttl import TTLTracker
@@ -316,6 +317,8 @@ class ShardedDPAStore:
         self.watchdog = watchdog
         self.wave_time_hook = None
         self.shard_drain_ns = np.zeros(n_shards, dtype=np.int64)
+        # the facade's own host spans (routing); each sub-store keeps its own
+        self.spans = SpanTable()
         h = self.route_np(keys)
         # scatter-gather accounting (benchmarks report the measured fan-out
         # and the continuation re-issue traffic)
@@ -511,6 +514,18 @@ class ShardedDPAStore:
             self.planner.note_load(dest)
         return keys_u64, dest
 
+    def _route_masks(self, keys_u64, n: int, epoch: Optional[int] = None):
+        """``_route`` and each of the ``n`` shards' row mask, timed as the
+        span ``kv/shard/route``."""
+        with span(self.spans, "kv/shard/route"):
+            keys_u64, dest = self._route(keys_u64, epoch=epoch)
+            return keys_u64, [dest == s for s in range(n)]
+
+    def span_totals(self) -> Dict[str, Tuple[int, int]]:
+        """Host spans summed over the live stores (as ``stats_totals``)
+        plus the facade's own: ``name -> (ns, calls)``."""
+        return sum_totals([st.span_totals() for st in self._live_stores()] + [self.spans.totals()])
+
     def put(
         self, keys=None, vals=None, *,
         auto_retry: bool = True, ttl: Optional[int] = None, **legacy,
@@ -521,11 +536,10 @@ class ShardedDPAStore:
         if self.planner is not None:
             # feed the streaming key sample the online refit fits against
             self.planner.observe(np.asarray(keys, dtype=np.uint64))
-        keys, dest = self._route(keys)
+        keys, masks = self._route_masks(keys, self.n_shards)
         vals = np.asarray(vals, dtype=np.uint64)
         statuses = np.zeros(keys.size, dtype=np.int32)
-        for s in range(self.n_shards):
-            m = dest == s
+        for s, m in enumerate(masks):
             if m.any():
                 t0 = time.perf_counter()
                 statuses[m] = self._write_group(
@@ -541,10 +555,9 @@ class ShardedDPAStore:
 
         keys = api.take_legacy("delete", legacy, keys, "keys", "keys_u64")
         api.reject_unknown("delete", legacy)
-        keys, dest = self._route(keys)
+        keys, masks = self._route_masks(keys, self.n_shards)
         statuses = np.zeros(keys.size, dtype=np.int32)
-        for s in range(self.n_shards):
-            m = dest == s
+        for s, m in enumerate(masks):
             if m.any():
                 t0 = time.perf_counter()
                 statuses[m] = self._write_group(
@@ -582,12 +595,11 @@ class ShardedDPAStore:
         epoch is captured here — barrier ops (rebalance install, failover
         flip) drain the pipeline first, so ownership cannot move under an
         in-flight wave.  ``get() == get_finalize(get_issue())``."""
-        keys, dest = self._route(np.asarray(keys, dtype=np.uint64), epoch=epoch)
         groups = self._groups_for_epoch(epoch)
+        keys, masks = self._route_masks(np.asarray(keys, dtype=np.uint64), len(groups), epoch=epoch)
         track = groups is self.groups  # retired generation: not monitored
         parts = []
-        for s in range(len(groups)):
-            m = dest == s
+        for s, m in enumerate(masks):
             if m.any():
                 st = self._read_store(s, epoch=epoch)
                 parts.append((s if track else -1, m, st, st.get_issue(keys[m])))
@@ -617,10 +629,11 @@ class ShardedDPAStore:
         assert op in ("put", "delete"), op
         keys = np.asarray(keys, dtype=np.uint64)
         vals_np = None if vals is None else np.asarray(vals, dtype=np.uint64)
-        dest = self.route_np(keys)
+        with span(self.spans, "kv/shard/route"):
+            dest = self.route_np(keys)
+            masks = [dest == s for s in range(self.n_shards)]
         plans = []
-        for s in range(self.n_shards):
-            m = dest == s
+        for s, m in enumerate(masks):
             if not m.any():
                 continue
             for r in self._in_sync(s):
@@ -739,8 +752,8 @@ class ShardedDPAStore:
         if k_max is not None:  # per-row exclusive clip (scalar broadcasts)
             k_max = np.broadcast_to(np.asarray(k_max, dtype=np.uint64), (n,))
         if self.partition == "range":
-
-            owner = self.route_np(start, epoch=epoch)
+            with span(self.spans, "kv/shard/route"):
+                owner = self.route_np(start, epoch=epoch)
             lb = self.ownership.lower_bounds(epoch)
             ub = self.ownership.upper_bounds(epoch)  # KEY_MAX sentinel last
             groups = self._groups_for_epoch(epoch)
@@ -860,7 +873,8 @@ class ShardedDPAStore:
         if k_max is not None:
             k_max = np.broadcast_to(np.asarray(k_max, dtype=np.uint64), (n,))
         if self.partition == "range":
-            owner = self.route_np(start, epoch=epoch)
+            with span(self.spans, "kv/shard/route"):
+                owner = self.route_np(start, epoch=epoch)
             lb = self.ownership.lower_bounds(epoch)
             ub = self.ownership.upper_bounds(epoch)
             groups = self._groups_for_epoch(epoch)

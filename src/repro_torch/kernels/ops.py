@@ -9,7 +9,8 @@ kernels carry both paths.
 
 ``range_scan_loop`` always runs kernel walk -> plain-torch insert-buffer
 merge epilogue -> continuation loop, so the CPU tests exercise the same
-epilogue and loop code the card runs.
+epilogue and loop code the card runs.  Given the store's span table, it
+times each round's merge epilogue as ``kv/range/merge``.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from ..core.hotcache import CacheConfig
 from ..core.keys import limb_le, u32
 from ..core.lookup import IB_DEL, IB_EMPTY, InsertBuffers
 from ..core.scancache import ScanCacheConfig
+from ..core.spans import SpanTable, span
 from . import cache_probe as _probe
 from . import paged_gather as _paged
 from . import range_scan as _range
@@ -69,14 +71,15 @@ def _empty_scan(khi, klo):
     )
 
 
-def _round(tree, ib: InsertBuffers, start, khi, klo, *, limit: int, max_leaves: int):
+def _round(tree, ib: InsertBuffers, start, khi, klo, *, limit: int, max_leaves: int, spans=None):
     """One bounded walk (kernel B3) + the insert-buffer merge epilogue."""
     cap = ib.keys.shape[1]
     # over-collect so buffered deletes can never starve the final cut
     kh, kl, vh, vl, cnt, visited, next_leaf = _range.walk(
         tree, start, khi, klo, limit=limit + max_leaves * cap, max_leaves=max_leaves
     )
-    return _merge_ib_epilogue(ib, khi, klo, kh, kl, vh, vl, cnt, visited, next_leaf, limit=limit)
+    with span(SpanTable() if spans is None else spans, "kv/range/merge"):
+        return _merge_ib_epilogue(ib, khi, klo, kh, kl, vh, vl, cnt, visited, next_leaf, limit=limit)
 
 
 def range_scan(
@@ -115,13 +118,14 @@ def range_scan_loop(
     start_leaf=None,
     ub_hi=None,
     ub_lo=None,
+    spans=None,
 ):
     """Multi-round RANGE: the continuation of ``lookup.range_batch_loop``
     with each round's walk on kernel B3.  The walk's ``next_leaf`` output is
     the loop-carried cursor: each round feeds it back as the next round's
     start.  ``ub_hi``/``ub_lo`` are per-row owned-window upper-bound limbs
-    (default: the KEY_MAX sentinel = no clip).  Returns (keys, vals, valid,
-    truncated, cursor, rounds)."""
+    (default: the KEY_MAX sentinel = no clip); ``spans`` is the store's
+    span table.  Returns (keys, vals, valid, truncated, cursor, rounds)."""
     B = khi.shape[0]
     if limit <= 0 or B == 0:
         return (*_empty_scan(khi, klo), 0)
@@ -132,7 +136,7 @@ def range_scan_loop(
         start_leaf = lookup.traverse(tree, khi, klo, depth=depth, eps_inner=eps_inner)
 
     def round_fn(s, h, l):
-        return _round(tree, ib, s, h, l, limit=limit, max_leaves=max_leaves)
+        return _round(tree, ib, s, h, l, limit=limit, max_leaves=max_leaves, spans=spans)
 
     return lookup.continuation_loop(
         round_fn,

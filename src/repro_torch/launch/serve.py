@@ -60,6 +60,7 @@ from ..core import DPAStore, EpochRetiredError, TreeConfig, perfmodel
 from ..core import keys as keymod
 from ..core.datasets import sparse, zipf_indices
 from ..core.scancache import ScanCacheConfig
+from ..core.spans import format_totals
 from ..distributed.kvshard import ShardedDPAStore
 from ..distributed.snapshot import save_snapshot
 from ..device import resolve_device
@@ -360,12 +361,13 @@ def serve_kv(args):
         )
         print(
             f"[serve-kv] pipeline: queue_depth={args.queue_depth} "
-            f"waves={s['waves']} overlap_frac={s['overlap_frac']:.2f} "
+            f"waves={s['waves']} "
             f"issue {s['issue_us_per_wave']:.0f}us + drain "
             f"{s['drain_us_per_wave']:.0f}us per wave -> host roofline "
             f"{roof:.3g} MOPS"
             + (f" (trace -> {args.profile_dir})" if args.profile_dir else "")
         )
+        print(f"[serve-kv] spans: {format_totals(pipe.span_totals())}")
     print(f"[serve-kv] {served} requests in {dt:.2f}s ({served/dt/1e3:.1f} kOPS on {device_name(store.device)})")
     if args.partition == "single":
         st = store.stats

@@ -35,12 +35,12 @@ Correctness contract (what makes pipelined == serial bitwise):
   N+1's issue wrote.  ``tests/test_torch_pipeline.py`` pins this.
 
 Observability: every wave is timed into a :class:`WaveLedger`
-(``wave_issue_ns`` / ``wave_drain_ns`` per wave plus in-flight intervals);
-``overlap_frac`` is the share of the pipeline's busy time with more than
-one wave in flight (0 by construction at ``queue_depth=1``, above 0 by
-construction at depth 2 with back-to-back submits: it says nothing about
-device overlap).  Each phase runs inside a ``torch.profiler.record_function``
-span, and :meth:`WavePipeline.trace` records a Chrome trace.
+(``wave_issue_ns`` / ``wave_drain_ns`` per wave plus in-flight intervals).
+While a profiler records, each phase is labelled ``<name>/<kind>/issue#<seq>``
+or ``.../drain#<seq>`` on its timeline (``core/spans.py``), around the
+store's own spans; :meth:`WavePipeline.span_totals` gives the ledger's
+phase times as spans, and :meth:`PipelinedStore.span_totals` adds the
+store's.  :meth:`WavePipeline.trace` records a Chrome trace.
 ``core.perfmodel.pipelined_wave_mops`` turns the ledger into a host
 roofline.
 """
@@ -58,6 +58,7 @@ import numpy as np
 import torch
 
 from ..core import api
+from ..core.spans import SpanTable, label, span, sum_totals
 
 
 # ---------------------------------------------------------------------------
@@ -90,11 +91,7 @@ class WaveRecord:
 
 @dataclass
 class WaveLedger:
-    """Per-wave timing ledger.
-
-    ``overlap_frac`` is the fraction of the pipeline's total in-flight time
-    covered by >= 2 concurrent waves: serial execution scores exactly 0,
-    any issue-while-draining overlap scores > 0."""
+    """Per-wave timing ledger."""
 
     records: List[WaveRecord] = field(default_factory=list)
 
@@ -110,27 +107,6 @@ class WaveLedger:
     def wave_drain_ns(self) -> int:
         return sum(r.drain_ns for r in self.records)
 
-    def overlap_frac(self) -> float:
-        """1 - merged_span / sum_of_intervals over the in-flight intervals.
-        Disjoint intervals (pure serial) -> 0; full double-buffering ->
-        ~0.5+."""
-        iv = sorted(r.inflight for r in self.records if r.t_drain1 > 0)
-        if not iv:
-            return 0.0
-        total = sum(b - a for a, b in iv)
-        if total <= 0:
-            return 0.0
-        merged = 0
-        cur_a, cur_b = iv[0]
-        for a, b in iv[1:]:
-            if a > cur_b:
-                merged += cur_b - cur_a
-                cur_a, cur_b = a, b
-            else:
-                cur_b = max(cur_b, b)
-        merged += cur_b - cur_a
-        return max(0.0, 1.0 - merged / total)
-
     def summary(self) -> dict:
         n = max(self.n_waves, 1)
         return {
@@ -139,7 +115,6 @@ class WaveLedger:
             "wave_drain_ns": self.wave_drain_ns,
             "issue_us_per_wave": self.wave_issue_ns / n / 1e3,
             "drain_us_per_wave": self.wave_drain_ns / n / 1e3,
-            "overlap_frac": self.overlap_frac(),
         }
 
 
@@ -161,12 +136,6 @@ class WaveTicket:
         self.record = record
         self._result = None
         self._done = False
-
-
-def _trace_annotation(label: str):
-    """A ``torch.profiler`` span around one pipeline phase (free when no
-    profiler is recording)."""
-    return torch.profiler.record_function(label)
 
 
 class WavePipeline:
@@ -203,7 +172,7 @@ class WavePipeline:
         seq = self._seq
         self._seq += 1
         t0 = time.perf_counter_ns()
-        with _trace_annotation(f"{self.name}/{kind}/issue#{seq}"):
+        with label(f"{self.name}/{kind}/issue#{seq}"):
             ctx = issue_fn()
         t1 = time.perf_counter_ns()
         rec = WaveRecord(seq=seq, kind=kind, t_issue0=t0, t_issue1=t1)
@@ -215,7 +184,7 @@ class WavePipeline:
     def _drain_oldest(self) -> None:
         ticket = self._inflight.popleft()
         ticket.record.t_drain0 = time.perf_counter_ns()
-        with _trace_annotation(f"{self.name}/{ticket.kind}/drain#{ticket.seq}"):
+        with label(f"{self.name}/{ticket.kind}/drain#{ticket.seq}"):
             ticket._result = ticket.finalize_fn(ticket.ctx)
         ticket.record.t_drain1 = time.perf_counter_ns()
         ticket.ctx = None  # drop the wave's tensors once its result is on the host
@@ -237,6 +206,18 @@ class WavePipeline:
         """The epoch barrier: complete every in-flight wave."""
         while self._inflight:
             self._drain_oldest()
+
+    def span_totals(self) -> dict:
+        """The waves' phases as spans, ``<name>/<kind>/issue`` and
+        ``.../drain`` -> (ns, calls): the ledger's drained waves, and the
+        issue of those still in flight."""
+        t = SpanTable()
+        for r in self.ledger.records:
+            t.add(f"{self.name}/{r.kind}/issue", r.issue_ns)
+            t.add(f"{self.name}/{r.kind}/drain", r.drain_ns)
+        for tk in self._inflight:
+            t.add(f"{self.name}/{tk.kind}/issue", tk.record.issue_ns)
+        return t.totals()
 
     @property
     def inflight(self) -> int:
@@ -363,6 +344,7 @@ class PipelinedStore:
     def __init__(self, store, queue_depth: int = 2, name: str = "kv"):
         self.store = store
         self.pipeline = WavePipeline(queue_depth, name=name, device=getattr(store, "device", None))
+        self.spans = SpanTable()  # write barriers and serial write waves
         self.queue_depth = queue_depth
 
     # -------------------------------------------------------------- async
@@ -401,10 +383,12 @@ class PipelinedStore:
             # a buffer could fill: this wave needs a stitch cycle, so the
             # pipeline drains first and the batch takes the serial path,
             # landing its patches at the serial op-stream points
-            self.pipeline.drain()
-            if op == "put":
-                return ("serial", self.store.put(keys, vals))
-            return ("serial", self.store.delete(keys))
+            with span(self.spans, "kv/write/barrier"):
+                self.pipeline.drain()
+            with span(self.spans, "kv/write/serial"):
+                if op == "put":
+                    return ("serial", self.store.put(keys, vals))
+                return ("serial", self.store.delete(keys))
 
         def finalize(ctx):
             mode, payload = ctx
@@ -528,3 +512,9 @@ class PipelinedStore:
 
     def pipeline_summary(self) -> dict:
         return self.ledger.summary()
+
+    def span_totals(self) -> dict:
+        """``name -> (ns, calls)``: the store's spans, this front end's
+        (write barriers, serial write waves) and the pipeline's wave phases.
+        No barrier: in-flight waves' drains are not counted yet."""
+        return sum_totals([self.store.span_totals(), self.spans.totals(), self.pipeline.span_totals()])

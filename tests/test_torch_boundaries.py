@@ -534,7 +534,10 @@ def test_pipelined_equals_serial_on_the_card(cuda_device):
         for f in ("wave_issue_ns", "wave_drain_ns", "cache_hits", "scan_hits", "scan_probes", "scan_cursor_admits"):
             sa.pop(f), sb.pop(f)
         assert sa == sb, qd
-        assert serial.stats.flush_cycles > 0 and pipe.pipeline_summary()["overlap_frac"] > 0
+        spans = pipe.span_totals()
+        n_waves = sum(kind != "flush" for kind, _, _ in script)
+        assert sum(c for k, (_, c) in spans.items() if k.endswith("/issue")) == n_waves, spans
+        assert serial.stats.flush_cycles > 0 and spans["kv/write/serial"][1] >= 1, spans
 
 
 def _same_answer(a, b, what):
