@@ -18,7 +18,11 @@ Phases, one JSON line each (any mismatch raises and exits non-zero):
                written before each launch) and the launch plan of the wave;
                for the probes the wave's Bloom-positive and hit shares and the
                launch floor (the same timer around ``fill_`` of a 1-element
-               tensor).
+               tensor).  Then B5, the scan wave's pack, at a YCSB-E wave's
+               shape (62,259 starts, limit 100): bitwise against its plain
+               version, its time and bound, the one page-locked copy of its
+               buffer beside the six pageable copies it replaced, and the
+               host's copy-out beside the numpy epilogue it replaced.
 3. main     — the single-store main path at a deployment's size: 50M sparse
                keys (the service config's and the paper's Table-1 scale),
                default tree/cache configs, YCSB-B waves (95% GET at zipf 0.99,
@@ -221,6 +225,9 @@ WAVE = 65536  # requests per wave (dpastore_service.py:12)
 ROUNDS = 6  # YCSB-B rounds: one GET wave + one UPDATE wave each
 PARITY_KEYS = 200_000
 SEED = 0
+# kernel B5 (phase 2) at a YCSB-E scan wave: 95 % of 65,536 requests (the
+# benchmark's 62,259 scans a group), limit 100 (kvbench/traffic/ycsb-e.json)
+SCAN_WAVE, SCAN_LIMIT = 62259, 100
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 INT_OPS_PER_S = 67e12  # H100 SXM non-tensor-core 32-bit rate (data sheet, f32)
 ZIPF = 0.99
@@ -752,7 +759,62 @@ def kernel_phase(torch, dev, st, q2) -> dict:
         emit({"phase": "kernel", "kernel": name, "equal": True, "ms": ms, "plain_ms": plain_ms,
               "bytes": nbytes, "ops": nops, "bound_ms": bound_ms, "bound_by": bound_by, **extra,
               "shapes": {"requests": W, "depth": st.depth, "L": L if name == "range_walk" else None}})
+    kernels["range_pack"] = pack_phase(torch, st, q2[:SCAN_WAVE])
     return kernels
+
+
+def pack_phase(torch, st, q) -> dict:
+    """Kernel B5 at a YCSB-E scan wave's shape (``q.size`` starts, limit
+    100, 4 leaves a round) on the range loop's outputs for ``q``: bitwise
+    against ``pack_plain``, its time beside its bound and the plain
+    version's, the one page-locked copy of its buffer beside the six
+    pageable ``.cpu()`` copies it replaces, and on the host's clock the
+    drain's copy-out (``unpack``) beside the numpy epilogue it replaces."""
+    from repro_torch.kernels import ops, range_pack
+
+    n, L = q.size, SCAN_LIMIT
+    khi, klo = st._limbs(q)
+    rk, rv, valid, trunc, cur, _ = ops.range_scan_loop(
+        st.tree, st.ib, khi, klo, depth=st.depth, eps_inner=st.cfg.eps_inner, limit=L, max_leaves=4)
+    args = (rk, rv, valid, trunc, cur.leaf, cur.khi, cur.klo, khi, klo)
+    got = range_pack.pack_cuda(*args, limit=L)
+    want = range_pack.pack_plain(*args, limit=L)
+    host = torch.empty(got.numel(), dtype=torch.uint8, pin_memory=True)
+    host.copy_(got)
+    a, b = range_pack.unpack(host, n, L), range_pack.unpack(want.cpu(), n, L)
+    assert all(np.array_equal(x, y) and x.dtype == y.dtype for x, y in zip(a, b)), "B5 disagrees with pack_plain"
+    ms = time_ms(torch, lambda: range_pack.pack_cuda(*args, limit=L))
+    nbytes = n * L * 33 + n * 42  # limbs 16 + mask 1 in, 16 out a slot; 21 in, 21 out a row
+    bound_ms, bound_by = bound(nbytes, 0)
+    pageable = (valid, rk, rv, trunc, cur.leaf, torch.stack([cur.khi, cur.klo], dim=-1))
+    t = {"ms": ms, "plain_ms": time_ms(torch, lambda: range_pack.pack_plain(*args, limit=L)),
+         "pinned_copy_ms": time_ms(torch, lambda: host.copy_(got, non_blocking=True)),
+         "pageable_copies_ms": time_ms(torch, lambda: [x.cpu() for x in pageable])}
+
+    def host_ms(fn, reps: int = 5) -> float:
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times))
+
+    from repro_torch.core.keys import join_u64
+
+    va_np, rk_np, rv_np = (x.cpu().numpy() for x in (valid, rk, rv))
+
+    def numpy_epilogue():  # the drain's host work before B5 (counts, keys, values)
+        rc = va_np.sum(axis=1)
+        return rc, np.where(va_np, join_u64(rk_np), 0), np.where(va_np, join_u64(rv_np), 0)
+
+    t["unpack_host_ms"] = host_ms(lambda: range_pack.unpack(host, n, L))
+    t["numpy_epilogue_host_ms"] = host_ms(numpy_epilogue)
+    emit({"phase": "kernel", "kernel": "range_pack", "equal": True, **t, "bytes": nbytes, "bound_ms": bound_ms,
+          "bound_by": bound_by, "gb_per_s": nbytes / ms / 1e6, "shapes": {"requests": n, "L": L},
+          "packed_bytes": int(got.numel())})
+    return {"name": "range_pack", "route": "cuda", "source": "src/repro_torch/csrc/range_pack.cu",
+            "replaces": None, "launches": None, "max_abs_err": 0.0, **t, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
 
 
 def max_abs_err(torch, name: str, got, want) -> float:
@@ -3414,7 +3476,7 @@ def examples_phase(torch, dev) -> None:
 
     root = Path(__file__).resolve().parent
     ckpt = tempfile.mkdtemp(prefix="torch_train_lm_")
-    runs, needs = [], {"torch_quickstart.py": ("get", "cache_probe_p2", "cache_probe_p1", "range_walk"),
+    runs, needs = [], {"torch_quickstart.py": ("get", "cache_probe_p2", "cache_probe_p1", "range_walk", "range_pack"),
                        "torch_paged_decode.py": ("paged_gather",), "torch_train_lm.py": ()}
     try:
         for name, argv in (("torch_quickstart.py", []), ("torch_paged_decode.py", []),
@@ -3569,7 +3631,7 @@ def paged_phase(torch, dev, kernels) -> None:
     re_out = layer.attend(reappend[0], qs[n_att + 1])
     torch.cuda.synchronize()
     launches = dict(build.launches)
-    for k in ("get", "cache_probe_p2", "cache_probe_p1", "range_walk", "paged_gather"):
+    for k in ("get", "cache_probe_p2", "cache_probe_p1", "range_walk", "range_pack", "paged_gather"):
         assert launches[k] > 0, f"kernel {k} was not launched on the paged path"
     assert launches["paged_gather"] == n_att + 1, "one gather of K and V per attend"
     peak = torch.cuda.max_memory_allocated() - base

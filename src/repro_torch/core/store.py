@@ -51,7 +51,7 @@ from .spans import SpanTable, clock, recording, span
 from .tree import SEG_CAP, TreeConfig, TreeImage, build_image
 from .ttl import TTLTracker
 from ..device import resolve_device
-from ..kernels import ops
+from ..kernels import ops, range_pack
 
 STATUS_OK = insert_buffer.STATUS_OK
 STATUS_RETRY = insert_buffer.STATUS_RETRY
@@ -123,31 +123,56 @@ class _WriteWave:
 
 @dataclass
 class _RangeWave:
-    """In-flight RANGE wave: device outputs of the range loop plus the
-    pre-sized host accumulators the finalize phase fills."""
+    """In-flight RANGE wave: its packed results on their way into a host
+    staging buffer (kernel B5, one copy), or its answer already whole."""
 
     n: int
     limit: int
     arity: int
     resumed: bool  # start_leaves was given (host-orchestrated re-issue)
-    keys_out: np.ndarray
-    vals_out: np.ndarray
-    counts: np.ndarray
-    trunc_out: np.ndarray
-    cur_leaf_out: np.ndarray
-    cur_key_out: np.ndarray
-    rk: object = None
-    rv: object = None
-    valid: object = None
-    trunc: object = None
-    cursor: object = None
+    staged: Optional[Tuple[torch.Tensor, Optional[torch.cuda.Event]]] = None
     rounds: int = 0
-    empty: bool = False  # limit<=0 / n==0 short-circuit: no device wave
-    # prebaked waves (the TTL refill loop runs at issue time): the results
-    # already sit in the host accumulators, and ``empty`` is True as well
-    rounds_done: int = 0
-    stats_out: Optional[dict] = None
     as_of: Optional[int] = None
+    # the answer of a wave with no device part: a degenerate one (limit<=0
+    # / n==0) or a prebaked one (the TTL refill loop runs at issue time)
+    result: Optional[RangeResult] = None
+
+
+class _Staging:
+    """Host staging buffers for the scan waves' packed results: a free list
+    of uint8 buffers, page-locked when the store is on a card, each with the
+    event of its last copy.  A wave takes one at issue and gives it back at
+    drain, so waves issued and not yet drained never share one, however
+    many a caller keeps in flight; a buffer grows to the largest wave it
+    has carried."""
+
+    def __init__(self, device: torch.device):
+        self.card = device.type == "cuda"
+        self._free: List[Tuple[torch.Tensor, Optional[torch.cuda.Event]]] = []
+
+    def stage(self, packed: torch.Tensor):
+        """Copy ``packed`` into a free buffer: asynchronously from a card,
+        followed by the buffer's event."""
+        buf = self._free.pop() if self._free else None
+        if buf is None or buf[0].numel() < packed.numel():
+            buf = (
+                torch.empty(packed.numel(), dtype=torch.uint8, pin_memory=self.card),
+                torch.cuda.Event() if self.card else None,
+            )
+        host, done = buf
+        host[: packed.numel()].copy_(packed, non_blocking=self.card)
+        if done is not None:
+            done.record(torch.cuda.current_stream(packed.device))
+        return buf
+
+    def take(self, buf) -> torch.Tensor:
+        """The buffer, once its copy has landed."""
+        if buf[1] is not None:
+            buf[1].synchronize()
+        return buf[0]
+
+    def release(self, buf) -> None:
+        self._free.append(buf)
 
 
 class DPAStore:
@@ -223,6 +248,8 @@ class DPAStore:
         # host shadow of ib.count for the write fast path (None = stale;
         # every other insert-buffer mutation resets it)
         self._ib_shadow: Optional[np.ndarray] = None
+        # page-locked landing buffers of the scan waves' drains
+        self._staging = _Staging(self.device)
 
     # ------------------------------------------------------------------ util
     @property
@@ -726,21 +753,20 @@ class DPAStore:
                     as_of=as_of,
                     expired_fn=expired_fn,
                 )
-        w = _RangeWave(
-            n=n,
-            limit=limit,
-            arity=arity,
-            resumed=start_leaves is not None,
-            keys_out=np.zeros((n, lim), dtype=np.uint64),
-            vals_out=np.zeros((n, lim), dtype=np.uint64),
-            counts=np.zeros(n, dtype=np.int64),
-            trunc_out=np.zeros(n, dtype=bool),
-            cur_leaf_out=np.full(n, -1, dtype=np.int32),
-            cur_key_out=start_keys_u64.copy(),
-        )
+        w = _RangeWave(n=n, limit=limit, arity=arity, resumed=start_leaves is not None)
         self.stats.ranges += n
         if n == 0 or limit <= 0:
-            w.empty = True
+            w.result = RangeResult(
+                keys=np.zeros((n, lim), dtype=np.uint64),
+                vals=np.zeros((n, lim), dtype=np.uint64),
+                counts=np.zeros(n, dtype=np.int64),
+                truncated=np.zeros(n, dtype=bool),
+                cursor_leaf=np.full(n, -1, dtype=np.int32),
+                cursor_key=start_keys_u64.copy(),
+                rounds=0,
+                stats={},
+                _arity=arity,
+            )
             return w
         if start_leaves is not None:
             self.stats.range_reissue_rounds += 1
@@ -763,7 +789,7 @@ class DPAStore:
                     self.tree, khi, klo, depth=self.depth, eps_inner=self.cfg.eps_inner
                 )
                 start = torch.where(start < 0, tstart, start)
-            w.rk, w.rv, w.valid, w.trunc, w.cursor, w.rounds = lookup.range_batch_loop_versioned(
+            *out, w.rounds = lookup.range_batch_loop_versioned(
                 self.tree,
                 self._resolve_table(as_of),
                 start,
@@ -775,11 +801,12 @@ class DPAStore:
                 max_leaves=max_leaves,
                 max_rounds=max_rounds,
             )
+            self._stage_range(w, out, khi, klo)
             self._end_wave()
             return w
         with span(self.spans, "kv/range/start"):
             start = self._scan_start(khi, klo, resume)
-        w.rk, w.rv, w.valid, w.trunc, w.cursor, w.rounds = ops.range_scan_loop(
+        *out, w.rounds = ops.range_scan_loop(
             self.tree,
             self.ib,
             khi,
@@ -794,44 +821,37 @@ class DPAStore:
             ub_lo=ub_lo,
             spans=self.spans,
         )
+        self._stage_range(w, out, khi, klo)
         self._end_wave()
         return w
 
+    def _stage_range(self, w: _RangeWave, out, khi, klo) -> None:
+        """Pack the range loop's ``out`` (keys, vals, valid, truncated,
+        cursor) into the host's layout (kernel B5) and enqueue its copy into
+        a staging buffer: the wave's whole device part ends here."""
+        rk, rv, valid, trunc, cursor = out
+        with span(self.spans, "kv/range/pack"):
+            packed = ops.range_pack(rk, rv, valid, trunc, cursor, khi, klo, limit=w.limit)
+            w.staged = self._staging.stage(packed)
+
     def range_finalize(self, w: _RangeWave) -> RangeResult:
-        """Drain half of RANGE: gather, truncation epilogue and pagination
-        cursor admission (fresh live scans only)."""
+        """Drain half of RANGE: the staged results copied out into the
+        wave's arrays, and pagination cursor admission (fresh live scans
+        only)."""
+        if w.result is not None:  # degenerate or prebaked: no device part
+            return w.result
         n, limit = w.n, w.limit
-        keys_out, vals_out = w.keys_out, w.vals_out
-        counts, trunc_out = w.counts, w.trunc_out
-        cur_leaf_out, cur_key_out = w.cur_leaf_out, w.cur_key_out
-        if w.empty:
-            # degenerate short-circuit or a prebaked (filtered) wave: the
-            # host accumulators already hold the answer
-            return RangeResult(
-                keys=keys_out, vals=vals_out, counts=counts,
-                truncated=trunc_out, cursor_leaf=cur_leaf_out,
-                cursor_key=cur_key_out, rounds=w.rounds_done,
-                stats=w.stats_out or {}, _arity=w.arity,
-            )
+        staged, w.staged = w.staged, None
+        if staged is None:
+            raise RuntimeError("range_finalize: this wave was already drained")
         self.stats.range_rounds_in_mesh += max(w.rounds - 1, 0)
         with span(self.spans, "kv/range/copy"):
-            va = w.valid.cpu().numpy()
-            rk = w.rk.cpu().numpy()
-            rv = w.rv.cpu().numpy()
-            trunc = w.trunc.cpu().numpy()
-            cur_leaf = w.cursor.leaf.cpu().numpy()
-            cur_limbs = torch.stack([w.cursor.khi, w.cursor.klo], dim=-1).cpu().numpy()
+            host = self._staging.take(staged)
+            keys_out, vals_out, counts, trunc_out, cur_leaf_out, cur_key_out = range_pack.unpack(
+                host, n, limit
+            )
+            self._staging.release(staged)
         with span(self.spans, "kv/range/epilogue"):
-            rc = va.sum(axis=1)
-            keys_out[:] = np.where(va, join_u64(rk), 0)
-            vals_out[:] = np.where(va, join_u64(rv), 0)
-            counts[:] = rc
-            trunc_out[:] = trunc
-            cur_leaf_out[:] = cur_leaf
-            last_key = join_u64(cur_limbs)
-            emitted = rc > 0
-            cur_key_out[emitted] = last_key[emitted]
-            trunc_out &= counts < limit
             self.stats.range_truncated += int(trunc_out.sum())
         if not w.resumed and w.as_of is None:
             # only fresh client-entry scans admit their cursors: a resumed
@@ -903,21 +923,10 @@ class DPAStore:
         chain runs out.  Runs at issue time (each inner call is one wave)
         and returns a prebaked wave; rows are never reported truncated."""
         n = start_keys_u64.size
-        lim = max(limit, 0)
-        w = _RangeWave(
-            n=n,
-            limit=limit,
-            arity=arity,
-            resumed=False,
-            keys_out=np.zeros((n, lim), dtype=np.uint64),
-            vals_out=np.zeros((n, lim), dtype=np.uint64),
-            counts=np.zeros(n, dtype=np.int64),
-            trunc_out=np.zeros(n, dtype=bool),
-            cur_leaf_out=np.full(n, -1, dtype=np.int32),
-            cur_key_out=start_keys_u64.copy(),
-            empty=True,  # prebaked: no pending device gather
-            as_of=as_of,
-        )
+        keys_out = np.zeros((n, limit), dtype=np.uint64)
+        vals_out = np.zeros((n, limit), dtype=np.uint64)
+        counts = np.zeros(n, dtype=np.int64)
+        cur_key_out = start_keys_u64.copy()
         kmax_arr = np.full(n, KEY_MAX, dtype=np.uint64)
         if k_max is not None:
             kmax_arr[:] = np.asarray(k_max, dtype=np.uint64)
@@ -944,15 +953,15 @@ class DPAStore:
                 rv = r.vals[j, :rc]
                 keep = ~expired_fn(rk)
                 rk, rv = rk[keep], rv[keep]
-                space = limit - int(w.counts[i])
+                space = limit - int(counts[i])
                 take = min(rk.size, space)
                 if take:
-                    at = int(w.counts[i])
-                    w.keys_out[i, at : at + take] = rk[:take]
-                    w.vals_out[i, at : at + take] = rv[:take]
-                    w.counts[i] += take
-                    w.cur_key_out[i] = rk[take - 1]
-                if w.counts[i] >= limit or rc < limit:
+                    at = int(counts[i])
+                    keys_out[i, at : at + take] = rk[:take]
+                    vals_out[i, at : at + take] = rv[:take]
+                    counts[i] += take
+                    cur_key_out[i] = rk[take - 1]
+                if counts[i] >= limit or rc < limit:
                     # filled, or the unfiltered walk exhausted the window
                     need[i] = False
                     continue
@@ -961,10 +970,21 @@ class DPAStore:
                     need[i] = False
                 else:
                     cur_k[i] = np.uint64(nxt)
-        w.rounds_done = rounds
-        w.stats_out = {"rounds_in_mesh": 0, "reissue": 0, "ttl_filtered": 1}
+        stats = {"rounds_in_mesh": 0, "reissue": 0, "ttl_filtered": 1}
         if as_of is not None:
-            w.stats_out["as_of"] = int(as_of)
+            stats["as_of"] = int(as_of)
+        w = _RangeWave(n=n, limit=limit, arity=arity, resumed=False, as_of=as_of)
+        w.result = RangeResult(
+            keys=keys_out,
+            vals=vals_out,
+            counts=counts,
+            truncated=np.zeros(n, dtype=bool),
+            cursor_leaf=np.full(n, -1, dtype=np.int32),
+            cursor_key=cur_key_out,
+            rounds=rounds,
+            stats=stats,
+            _arity=arity,
+        )
         return w
 
     # ------------------------------------------------------------ patch path

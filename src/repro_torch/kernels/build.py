@@ -27,7 +27,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("traverse", "cache_probe", "range_scan", "paged_gather")
+SOURCES = ("traverse", "cache_probe", "range_scan", "paged_gather", "range_pack")
 NVCC_FLAGS = [
     "-gencode",
     "arch=compute_90a,code=sm_90a",
@@ -46,6 +46,7 @@ launches: Dict[str, int] = {
     "cache_probe_p1": 0,
     "range_walk": 0,
     "paged_gather": 0,
+    "range_pack": 0,
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -5,7 +5,8 @@ Every op dispatches on the device of its tensors: CUDA tensors go to the
 kernel (the wrapper launches it or raises), CPU tensors to the kernel's
 plain-torch version.  The store calls these ops for GET, the cache probes
 and RANGE, and the paged KV cache calls ``paged_gather_kv``, so on the card the
-kernels carry both paths.
+kernels carry both paths.  ``range_pack`` lays a RANGE wave's results out
+for the host's one copy.
 
 ``range_scan_loop`` always runs kernel walk -> plain-torch insert-buffer
 merge epilogue -> continuation loop, so the CPU tests exercise the same
@@ -25,6 +26,7 @@ from ..core.scancache import ScanCacheConfig
 from ..core.spans import SpanTable, span
 from . import cache_probe as _probe
 from . import paged_gather as _paged
+from . import range_pack as _pack
 from . import range_scan as _range
 from . import traverse as _traverse
 
@@ -56,6 +58,14 @@ def paged_gather_kv(pool_k, pool_v, slots):
     """``paged_gather`` of a K and a V pool by one slot list, in one launch
     of kernel B4: (k, v)."""
     return _paged.gather_kv(pool_k, pool_v, slots)
+
+
+def range_pack(rk, rv, valid, trunc, cursor, khi, klo, *, limit: int):
+    """A RANGE wave's results in the host's layout (kernel B5): one uint8
+    buffer of keys, values, counts, cursor keys and leaves and truncation
+    flags at ``range_pack.layout``'s offsets, from the range loop's
+    outputs, its ``cursor`` and the wave's start-key limbs."""
+    return _pack.pack(rk, rv, valid, trunc, cursor.leaf, cursor.khi, cursor.klo, khi, klo, limit=limit)
 
 
 def _empty_scan(khi, klo):
